@@ -2,8 +2,7 @@
 
 PY ?= python
 
-.PHONY: test test-quick bench bench-all bench-baseline bench-check lint \
-	native clean quality-tpu
+.PHONY: test test-quick bench bench-all lint native clean quality smoke
 
 test: native
 	$(PY) -m pytest tests/ -q
@@ -17,24 +16,16 @@ bench:
 bench-all:
 	$(PY) benchmarks/run_all.py
 
-# Snapshot the current results as the regression baseline (same backend).
-bench-baseline:
-	cp benchmarks/results.json benchmarks/baseline_tpu.json
+# Quality floors measured on the default device's float32 output.
+quality:
+	$(PY) tools/quality_device.py
 
-# Re-run the matrix and fail on a >20% regression vs the committed baseline
-# (benchstat analog of the reference's benchmark workflow).
-bench-check: bench-all
-	$(PY) benchmarks/check_regression.py benchmarks/results.json \
-		benchmarks/baseline_tpu.json --tolerance 0.20
-
-# Quality metrics measured on ACTUAL TPU float32 output via the default
-# (Pallas) paths, plus compiled Pallas-vs-XLA parity; writes
-# QUALITY_tpu.json and fails on any floor/parity violation.
-quality-tpu:
-	$(PY) tools/quality_tpu.py
+# The serving path once on the GPU, every phase checked (needs a card).
+smoke:
+	$(PY) chip_smoke.py
 
 lint:
-	$(PY) tools/lintcheck.py go_audio_resampler_tpu tests bench.py __graft_entry__.py
+	$(PY) tools/lintcheck.py go_audio_resampler_tpu tests bench.py chip_smoke.py __graft_entry__.py
 
 native:
 	$(MAKE) -s -C go_audio_resampler_tpu/native

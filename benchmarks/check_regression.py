@@ -11,7 +11,7 @@ Usage:
 
 Exit status 1 lists every regressed config.  Configs present in only one
 file are reported but do not fail the gate (new benchmarks are allowed).
-Backends must match — comparing a CPU smoke run against a TPU baseline is
+Backends must match — comparing runs on two different devices is
 meaningless and is rejected.
 """
 

@@ -6,9 +6,7 @@ each chunk as ONE device launch whose output STAYS on device (output
 counts are static, so no host synchronization happens anywhere), and the
 consumer — here a toy feature extractor standing in for an ML model —
 chains directly on the device arrays.  The host only orchestrates; the
-samples never bounce through it.  Measured end-to-end on a v5e this is
-~10.7 Gsamples/s vs 2.7 Msamples/s for the download-every-block loop
-(benchmarks/README.md "device-resident" rows).
+samples never bounce through it.
 
 Also shown: snapshotting the live stream mid-flight with
 `save_stream_state` and resuming bit-identically in a fresh engine —

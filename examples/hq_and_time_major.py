@@ -1,4 +1,4 @@
-"""Round-5 capabilities: HQ non-exact ratios and time-major serving.
+"""HQ non-exact ratios and time-major serving.
 
 Two things the reference library cannot do:
 
@@ -7,13 +7,12 @@ Two things the reference library cannot do:
    THD at ~-88 dB (polyphase_stage.go:105-117; reproduced bit-for-bit
    by default, for parity).  The opt-in mode corrects the wrap and
    designs 8x denser banks at the SAME per-output cost: measured
-   -162 dB THD in float64, -157 dB on TPU float32.
+   -162 dB THD in float64, -155 dB in float32 on an H200 (700 W).
 
 2. ``engine.TimeMajorEngine`` — device-resident serving for data stored
    time-major ([samples, streams]), which interleaved multi-channel
-   audio already is.  Streams ride the MXU lane axis, so the step
-   escapes the lane tile-padding that bounds the stream-major layout
-   (measured +34% kernel-level on v5e; see DESIGN.md section 6).
+   audio already is.  The step gathers row windows and multiplies them
+   in one einsum with no transpose (see DESIGN.md section 6).
 
 Run:  python examples/hq_and_time_major.py
 """
@@ -36,8 +35,8 @@ def hq_interp_demo():
     x = 0.9 * np.sin(2 * np.pi * 997.0 * t)
 
     for hq in (False, True):
-        # float32 engine: runs natively on TPU and CPU alike (the f64
-        # twin, gar.new_engine, needs jax_enable_x64 on CPU).
+        # float32 engine: runs on GPU and CPU alike (the f64 twin,
+        # gar.new_engine, needs jax_enable_x64).
         eng = gar.new_engine_float32(rate_in, rate_out,
                                      gar.QualityPreset.HIGH, hq_interp=hq)
         y = np.concatenate([eng.process(x), eng.flush()])

@@ -10,7 +10,7 @@ The toy model: a learnable 48 kHz pre-emphasis FIR -> resample to 16 kHz
 (QualityHigh) -> linear feature head.  Both parameter groups train
 through the resampler's exact transposed-operator VJP.
 
-Run:  python examples/ml_ingest_training.py        (CPU or TPU)
+Run:  python examples/ml_ingest_training.py        (CPU or GPU)
 """
 
 import os

@@ -1,13 +1,13 @@
-"""Multi-chip stream-parallel resampling example (beyond the Go reference).
+"""Multi-device stream-parallel resampling example (beyond the Go reference).
 
-Channels/streams are independent, so the framework scales across a TPU
-slice with pure data parallelism: the stream batch axis is sharded over a
-``jax.sharding.Mesh`` and every chip runs the identical per-block
+Channels/streams are independent, so the framework scales across devices
+with pure data parallelism: the stream batch axis is sharded over a
+``jax.sharding.Mesh`` and every device runs the identical per-block
 program (no collectives on the sample path).  The reference's analog is
 goroutine-per-channel fan-out (constant.go:224-241); here it is one SPMD
 device program.
 
-Runs anywhere: on a multi-chip slice the mesh spans real devices; on a
+Runs anywhere: on a multi-GPU host the mesh spans real devices; on a
 single host you can simulate one with
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
 

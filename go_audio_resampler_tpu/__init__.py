@@ -1,18 +1,18 @@
-"""go_audio_resampler_tpu: TPU-native audio sample-rate conversion.
+"""go_audio_resampler_tpu: accelerator audio sample-rate conversion.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 tphakala/go-audio-resampler (a pure-Go libsoxr-style resampler): multi-stage
 polyphase-FIR sample-rate conversion with Kaiser-window filter design, five
 quality presets, float32/float64 paths, streaming Process/Flush semantics,
 batched multi-channel and multi-stream processing, and a quality test suite
 validated against captured libsoxr reference data.
 
-Architecture (TPU-first, not a port):
+Architecture (device-first, not a port):
 
 - filter design runs at trace time on the host (numpy float64) and bakes
   constant coefficient banks into compiled XLA programs;
 - the polyphase inner loop is a closed-form fixed-point phase walk feeding
-  gather+einsum / frames-matmul kernels on the MXU;
+  gather+einsum / banded frames-matmul programs;
 - channels and concurrent streams ride a leading batch axis (replacing the
   reference's goroutine-per-channel parallelism);
 - streaming state (history tails, fixed-point accumulators) is an explicit

@@ -1,6 +1,6 @@
 """Public API: configuration, quality model, and the pipeline-path Resampler.
 
-TPU-native counterpart of the reference's ``package resampler`` surface:
+Counterpart of the reference's ``package resampler`` surface:
 
 - ``QualityPreset``/``QualitySpec``/``QualityFlags``/``get_preset_spec``
   <-> resample.go:77-153,217-267
@@ -54,7 +54,7 @@ class QualityFlags(enum.IntFlag):
     """Additional quality options (resample.go:134-153).
 
     Only ALLOW_ALIASING is consumed by the planner (pipeline_builder.go:32);
-    NO_SIMD has no meaning on TPU (XLA always vectorizes) and is accepted
+    NO_SIMD has no meaning here (XLA always vectorizes) and is accepted
     for compatibility.
     """
 
@@ -131,7 +131,7 @@ def get_preset_spec(preset: QualityPreset) -> QualitySpec:
 
 
 def default_dtype():
-    """float64 when x64 is enabled (CPU parity runs), else float32 (TPU)."""
+    """float64 when x64 is enabled (parity runs), else float32."""
     return np.float64 if jax.config.jax_enable_x64 else np.float32
 
 
@@ -139,10 +139,10 @@ def default_dtype():
 class Config:
     """Resampling configuration (resample.go:46-73).
 
-    ``enable_simd``/``enable_parallel`` are accepted for API parity; on TPU
-    the compute is always vectorized and channels are always batched.
-    ``dtype`` is TPU-native: compute precision (default float32 on TPU,
-    float64 under x64).
+    ``enable_simd``/``enable_parallel`` are accepted for API parity; the
+    compute is always vectorized and channels are always batched.
+    ``dtype`` is the compute precision (default float32, float64 under
+    x64).
     """
 
     input_rate: float
@@ -153,7 +153,7 @@ class Config:
     enable_simd: bool = True
     enable_parallel: bool = False
     dtype: object = None
-    # TPU-native extension (beyond the reference): apply a delay-
+    # Extension (beyond the reference): apply a delay-
     # compensated 1:1 anti-alias prefilter before the chain for
     # non-integer downsampling, raising alias rejection from ~0-10 dB
     # (reference behavior, documented there as informational) to
@@ -163,20 +163,15 @@ class Config:
     # unless QualityFlags.ALLOW_ALIASING is set; pass False for strict
     # reference parity, True to force it at any preset.
     strict_antialias: bool | None = None
-    # TPU-native extension: banded-step lowering per resampler —
-    # 'auto' (process-global gate), 'pallas', 'xla', or 'tune' (compile
-    # both at this engine's shapes and pin the measured winner; one
-    # extra compile).  The Pallas/XLA ordering flips between machines at
-    # the exact-f32 tier (doc.md "Numerical behavior").
-    dispatch: str = 'auto'
-    # TPU-native extension: matmul precision tier per resampler for the
-    # fused banded serving steps — 'auto' (process-global
-    # GAR_TPU_MATMUL_PRECISION), 'highest' (exact f32, 6 bf16 passes),
-    # 'high' (3-pass, ~-117 dB THD), 'default' (1-pass bf16 ingest
-    # tier, ~-70 dB THD at 3.5x throughput).  Part of the step's static
-    # jit key, so engines on different tiers coexist in one process.
+    # Extension: matmul precision tier per resampler for the fused
+    # banded serving steps — 'auto' (process-global
+    # GAR_TPU_MATMUL_PRECISION), 'highest' (full float32, the default),
+    # 'high' or 'default' (reduced-precision tiers; what each runs as is
+    # the backend's choice, see ops/precision.py).  Part of the step's
+    # static jit key, so engines on different tiers coexist in one
+    # process.
     precision: str = 'auto'
-    # TPU-native extension (beyond reference): high-quality inter-phase
+    # Extension (beyond reference): high-quality inter-phase
     # mode for non-exact-ratio stages — corrects the reference's
     # phase-bank boundary wrap (a ~-88 dB THD floor on the general walk,
     # filterdesign/params.cubic_phase_banks docstring) and densifies the
@@ -197,10 +192,6 @@ class Config:
             raise InvalidConfigError("channels must be at least 1")
         if self.channels > MAX_CHANNELS:
             raise InvalidConfigError(f"too many channels (max {MAX_CHANNELS})")
-        if self.dispatch not in ('auto', 'pallas', 'xla', 'tune'):
-            raise InvalidConfigError(
-                f"dispatch must be auto|pallas|xla|tune, "
-                f"got {self.dispatch!r}")
         if self.precision not in ('auto', 'highest', 'high', 'default'):
             raise InvalidConfigError(
                 f"precision must be auto|highest|high|default, "
@@ -215,7 +206,7 @@ class Config:
 @dataclasses.dataclass
 class Info:
     """Implementation info (resample.go:295-316).  SIMD fields map to the
-    XLA backend on TPU."""
+    XLA backend."""
 
     algorithm: str
     filter_length: int
@@ -291,8 +282,8 @@ class StubEngine:
 
 
 def _stage_engine(spec: StageSpec, channels: int, block: int, dtype,
-                  strict_antialias: bool = False, dispatch: str = 'auto',
-                  precision: str = 'auto', hq_interp: bool = False):
+                  strict_antialias: bool = False, precision: str = 'auto',
+                  hq_interp: bool = False):
     """Create the sub-engine realizing a StageSpec (stages.go:21-119).
 
     Half-band stages are polyphase engines with factor 2 (stages.go:31-44);
@@ -304,7 +295,7 @@ def _stage_engine(spec: StageSpec, channels: int, block: int, dtype,
     if spec.type == StageType.CUBIC:
         plan = plan_engine(48000.0, 48000.0 * spec.ratio, EngineQuality.QUICK)
         return EngineCore(plan, batch=channels, block=block, dtype=dtype,
-                          dispatch=dispatch, precision=precision)
+                          precision=precision)
     q = precision_to_engine_quality(spec.quality)
     try:
         plan = plan_engine(48000.0, 48000.0 * spec.ratio, q,
@@ -312,7 +303,7 @@ def _stage_engine(spec: StageSpec, channels: int, block: int, dtype,
     except (ValueError, ZeroDivisionError):
         return StubEngine(spec.ratio, channels, dtype)
     return EngineCore(plan, batch=channels, block=block, dtype=dtype,
-                      dispatch=dispatch, precision=precision)
+                      precision=precision)
 
 
 class Resampler:
@@ -362,8 +353,7 @@ class Resampler:
                                & QualityFlags.ALLOW_ALIASING))
         self._engines = [
             _stage_engine(spec, config.channels, block, self.dtype,
-                          strict, config.dispatch, config.precision,
-                          config.hq_interp)
+                          strict, config.precision, config.hq_interp)
             for spec in self.pipeline.stages]
         if not self._engines:
             # ratio within tolerance of 1.0: identity pipeline
@@ -371,7 +361,7 @@ class Resampler:
         # Whole-chain fusion (pipeline/fused.py): when every stage is a
         # periodic banded operator, the chain collapses into ONE composite
         # operator streamed as a single device program — no host hand-offs
-        # between stages (the round-2 bottleneck: 0.3 vs 19 Gs/s).  The
+        # between stages (the per-stage chain's bottleneck).  The
         # per-stage engines are kept for introspection and as the exact
         # semantic reference (GAR_TPU_FUSE_PIPELINE=0 forces them).
         self._fused = None
@@ -425,7 +415,6 @@ class Resampler:
                     fused_seg = (EngineCore(
                         bplan, batch=self.config.channels, block=block,
                         dtype=self.dtype,
-                        dispatch=self.config.dispatch,
                         precision=self.config.precision), j)
                     break
             if fused_seg is not None:

@@ -1,6 +1,6 @@
 """analyze-filter: polyphase filter bank DC-gain diagnostic.
 
-TPU-native counterpart of cmd/analyze-filter
+Counterpart of cmd/analyze-filter
 (analyze_filter_gain.go:28-132): designs a standalone polyphase bank and
 prints per-phase DC gain statistics — a filter-design debugging aid used
 to confirm each phase has unity gain after prototype normalization.

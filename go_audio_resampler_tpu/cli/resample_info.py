@@ -1,6 +1,6 @@
 """resample: configuration info / demo tool.
 
-TPU-native counterpart of the reference's cmd/resample demo tool
+Counterpart of the reference's cmd/resample demo tool
 (cmd/resample/main.go:15-213): prints the selected algorithm, filter
 length, phase count, latency, memory and backend for a configuration, and
 ``-demo`` sweeps quality presets, common ratios and channel counts.

@@ -1,6 +1,6 @@
 """resample-wav: WAV -> WAV sample-rate converter.
 
-TPU-native counterpart of the reference CLI (cmd/resample-wav/main.go):
+Counterpart of the reference CLI (cmd/resample-wav/main.go):
 streams the file in 65536-frame chunks through the direct-engine path
 (the "maximum performance" path, helpers.go:77-91) with all channels
 batched on the device, shows progress every 10%, and reports realtime
@@ -58,7 +58,7 @@ _QUALITY_NAMES = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="resample-wav",
-        description="High-quality WAV sample rate converter (TPU-native)")
+        description="High-quality WAV sample rate converter")
     p.add_argument("input", nargs="+",
                    help="input WAV file(s); with -outdir, many files are "
                         "resampled batched on the device's stream axis")
@@ -81,17 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["0", "16", "24", "32", "32f"],
                    help="output encoding: 16/24/32 integer PCM or 32f "
                         "(IEEE float32); default: match input depth as PCM")
-    p.add_argument("-dispatch", default="auto",
-                   choices=["auto", "pallas", "xla", "tune"],
-                   help="banded-step lowering: auto (default), pin "
-                        "pallas/xla, or tune (measure both once and pin "
-                        "the winner; one extra compile)")
     p.add_argument("-precision", default="auto",
                    choices=["auto", "highest", "high", "default"],
                    help="matmul tier for the serving steps: auto "
-                        "(process env), highest (exact f32), high "
-                        "(3-pass, ~-117 dB THD), default (1-pass bf16 "
-                        "ingest tier, ~-70 dB THD at ~3.5x)")
+                        "(process env), highest (full f32), or the "
+                        "reduced-precision high/default tiers")
     p.add_argument("-v", action="store_true", help="verbose output")
     p.add_argument("-profile", metavar="DIR", default=None,
                    help="write a JAX profiler trace to DIR")
@@ -102,9 +96,9 @@ def run_batch(args, preset) -> int:
     """Batch mode: resample many files in one device program per group.
 
     Files are grouped by (sample_rate, channels); each group's channels
-    ride the TPU stream axis together (files padded to the group's longest,
-    outputs trimmed per file to its canonical length) — the TPU-native
-    version of "resample a directory".
+    ride the device's stream axis together (files padded to the group's
+    longest, outputs trimmed per file to its canonical length) — the
+    batched version of "resample a directory".
     """
     import pathlib
 
@@ -168,38 +162,14 @@ def run_batch(args, preset) -> int:
     return 0
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache for CLI runs.
-
-    Remote/tunnel TPU compiles can take minutes; repeat conversions at
-    the same rates/quality/channel count hit the on-disk cache instead.
-    Location: $GAR_JAX_CACHE_DIR, else ~/.cache/go_audio_resampler_tpu/jax
-    (set GAR_JAX_CACHE_DIR= empty to disable)."""
-    import os
-
-    cache = os.environ.get(
-        "GAR_JAX_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "go_audio_resampler_tpu", "jax"))
-    if not cache:
-        return
-    try:
-        import jax
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:
-        pass
-
-
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     # Normalize -bits: "0" = match input (falsy), "32f" = IEEE float32
     # (passed through to WavWriter as-is), else integer PCM depth.
     args.bits = (0 if args.bits == "0"
                  else args.bits if args.bits == "32f" else int(args.bits))
-    _enable_compile_cache()
+    from ..utils import compile_cache
+    compile_cache.enable()
 
     from ..api import QualityPreset
     from ..convenience import preset_to_engine_quality
@@ -226,14 +196,10 @@ def run(argv=None) -> int:
 
     dtype = np.float32
     if not args.fast:
-        # The float64 engine needs x64; TPU backends are float32-native.
+        # The float64 engine needs x64, on any backend.
         import jax
-        if jax.default_backend() == "cpu":
-            jax.config.update("jax_enable_x64", True)
-            dtype = np.float64
-        elif args.v:
-            print("note: float64 engine unavailable on this backend; "
-                  "using float32 (pass -fast to silence)")
+        jax.config.update("jax_enable_x64", True)
+        dtype = np.float64
 
     try:
         reader = WavReader(args.input)
@@ -265,7 +231,6 @@ def run(argv=None) -> int:
         plan = plan_engine(float(in_rate), float(out_rate),
                            preset_to_engine_quality(preset))
         engine = EngineCore(plan, batch=channels, block=8192, dtype=dtype,
-                            dispatch=args.dispatch,
                             precision=args.precision)
         writer = WavWriter(args.output, int(out_rate), channels, bits)
 

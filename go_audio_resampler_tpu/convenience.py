@@ -1,6 +1,6 @@
 """Convenience API: direct-engine wrappers, one-shots, interleave helpers.
 
-TPU-native counterpart of the reference's convenience.go:
+Counterpart of the reference's convenience.go:
 
 - rate constants                    <-> convenience.go:11-41
 - ``new_cd_to_dat`` etc.            <-> convenience.go:43-113
@@ -94,14 +94,13 @@ class _SimpleBase:
 
     def __init__(self, input_rate: float, output_rate: float,
                  quality: QualityPreset, block: int = 2048, batch: int = 1,
-                 strict_antialias: bool = False, dispatch: str = 'auto',
-                 precision: str = 'auto', hq_interp: bool = False):
+                 strict_antialias: bool = False, precision: str = 'auto',
+                 hq_interp: bool = False):
         engine_quality = preset_to_engine_quality(quality)
         self.plan = plan_engine(float(input_rate), float(output_rate),
                                 engine_quality, strict_antialias, hq_interp)
         self.engine = EngineCore(self.plan, batch=batch, block=block,
-                                 dtype=self._dtype, dispatch=dispatch,
-                                 precision=precision)
+                                 dtype=self._dtype, precision=precision)
         self._out_queue = np.zeros(0, dtype=self._dtype)
 
     def _take(self, fresh: np.ndarray, limit: int | None) -> np.ndarray:
@@ -165,7 +164,8 @@ class SimpleResampler(_SimpleBase):
 class SimpleResamplerFloat32(_SimpleBase):
     """float32-native direct-engine resampler (convenience.go:296-395).
 
-    On TPU this is the performance path: the whole pipeline stays float32.
+    On an accelerator this is the performance path: the whole pipeline
+    stays float32.
     """
 
     _dtype = np.float32

@@ -1,4 +1,4 @@
-"""TPU engine: topology planning, traced stage kernels, one-shot and
+"""Device engine: topology planning, traced stage kernels, one-shot and
 streaming execution."""
 
 from .plan import EnginePlan, EngineConfigError, plan_engine, MIN_RATIO, MAX_RATIO

@@ -4,7 +4,7 @@ SURVEY.md section 5 (checkpoint/resume): the reference's streaming state is
 an enumerable set of per-stage buffers and accumulators (history tails,
 fixed-point ``at``, ``decimPhase``, the cubic window) which ``Reset()``
 zeroes — the full enumeration includes the inter-stage ring buffers
-(internal/pipeline/buffer.go:12-172).  In the TPU framework that state is
+(internal/pipeline/buffer.go:12-172).  In this framework that state is
 an explicit pytree, so checkpointing a live stream is a pure serialization
 of arrays: a stream can be snapshotted mid-flight, the process restarted,
 and processing resumed with bit-identical continuation.

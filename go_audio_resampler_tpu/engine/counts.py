@@ -1,6 +1,6 @@
 """Host-side exact output-length bookkeeping ("length model").
 
-The TPU engine runs with static shapes and emits a *constant-rate core*
+The device engine runs with static shapes and emits a *constant-rate core*
 stream that is then trimmed to the canonical output length — the number of
 samples the reference engine produces for `Process(x); Flush()`
 (SURVEY.md section 7, "Hard parts": data-dependent output lengths).
@@ -125,7 +125,7 @@ class PolyphaseSim:
 
 
 class CubicSim:
-    """Output counts of the TPU cubic stage's 32-bit fixed-point walk.
+    """Output counts of the device cubic stage's 32-bit fixed-point walk.
 
     The reference cubic stage (cubic.go:33-63) uses a float64 phase
     accumulator; this framework uses an exact 32-bit fixed-point walk for
@@ -162,7 +162,7 @@ class LengthModel:
     ``canonical(n)`` is the total reference output count for
     ``Process(n samples); Flush()`` following resampler.go:275-322's flush
     orchestration.  ``core_emitted(n_fed)`` is the count the constant-rate
-    TPU core emits after being fed ``n_fed`` samples (real + zero padding),
+    device core emits after being fed ``n_fed`` samples (real + zero padding),
     and ``flush_pad(n)`` the number of zero samples the core must be fed so
     it covers the canonical count.
     """

@@ -10,17 +10,12 @@ When to use: the banded frames-matmul path reads each input sample
 ``Wx/Ipx`` times (~2.8x for 96k->48k) and spends ``T/M`` MACs per output;
 both grow linearly with the prototype length ``T``, while the
 overlap-save path reads each input ~once and spends ``O(log N)`` per
-sample independent of ``T``.  Asymptotics notwithstanding, the round-4
-paired v5e measurement (benchmarks decim_long_*) shows the MXU matmul
-ahead of this path across the ENTIRE designable decimation range: ~9x at
-6403 taps and still ~8.5x at the 8191-tap cap (12.1 vs 1.4 Gs/s) —
-linear-in-T MACs on the systolic array beat the FFT's non-matmul ops
-(rfft butterflies, complex arithmetic, gathers) on this hardware.  The
-decimate routing therefore defaults to matmul everywhere reachable
-(oneshot.DECIM_FFT_MIN_TAPS, override via GAR_DECIM_FFT_MIN_TAPS for
-backends where the FFT wins); the 1:1 aa-prefilter conv, whose XLA conv
-lowering is NOT the MXU frames-matmul, keeps its measured ~6k-tap
-crossover (oneshot.FFT_CONV_MIN_TAPS).
+sample independent of ``T``.  The decimate routing defaults to the
+matmul everywhere reachable (oneshot.DECIM_FFT_MIN_TAPS, override via
+GAR_DECIM_FFT_MIN_TAPS); the 1:1 aa-prefilter conv keeps a ~6k-tap
+crossover (oneshot.FFT_CONV_MIN_TAPS).  Neither crossover has been
+re-measured on the current accelerator (the paired rows are
+benchmarks/run_all.py decim_long_*).
 
 Semantics parity (verified by tests/test_fftstage.py against
 ``engine.oneshot``):

@@ -4,10 +4,10 @@ For a known input length everything is compile-time constant: the flush
 padding, the canonical output length, and the entire fixed-point phase walk
 (div/phase/frac per output) — computed host-side in exact numpy int64 and
 baked into the program as constants.  The device program is then just
-convolutions, gathers and (for exact rational ratios) one big frames-matmul
-on the MXU.
+convolutions, gathers and (for exact rational ratios) one big
+frames-matmul.
 
-This is the TPU-native replacement for the reference's
+This is the accelerator-side replacement for the reference's
 ``ResampleMono``/``resampleAll`` call stack (convenience.go:204-229,
 SURVEY.md section 3.3), producing the same canonical sample stream.
 """
@@ -26,7 +26,7 @@ from jax import lax
 
 from ..filterdesign.params import PHASE_FRAC_BITS
 from ..ops.convolve import conv1d_poly
-from ..ops.pallas_fused import dot_precision
+from ..ops.precision import dot_precision
 from .counts import CubicSim
 from .plan import EnginePlan
 from .stages import gather_windows, hermite4, prestage_apply
@@ -35,23 +35,19 @@ _FRAC = 1 << PHASE_FRAC_BITS
 
 #: 1:1-FIR prototype length above which the FFT overlap-save lowering
 #: replaces the banded-matmul convolution (engine/fftstage.py).  The
-#: banded conv costs ~2*T flops/sample (T=901 measured ~11 Gs/s, so ~1.2
-#: Gs/s at T=8191) while the overlap-save path is length-independent at
-#: ~1.4 Gs/s measured (benchmarks/results.json fft_decim_96k_48k) —
-#: crossing near ~7k taps; 6144 adds margin for the conv's padding waste.
+#: banded conv costs ~2*T flops/sample while the overlap-save path's cost
+#: is length-independent, so a crossover exists; this value has not been
+#: re-measured on the current accelerator (ROADMAP A6).
 FFT_CONV_MIN_TAPS = 6144
 
 #: Crossover for routing the DECIMATE topology through overlap-save.
 #: The decimation stage does NOT share FFT_CONV_MIN_TAPS: its matmul
-#: lowering is the MXU frames-matmul (one MAC per tap rides the systolic
-#: array), not the 1:1 conv, and the paired v5e slope A/B
-#: (benchmarks/results.json decim_long_*) measured the matmul ahead by
-#: ~9x at 6403 taps (7.9 vs 0.9 Gs/s, 48k->4k VeryHigh) and ~8.5x at the
-#: 8191-tap design cap (12.1 vs 1.4 Gs/s, 48k->2k High) — so on TPU the
-#: matmul wins across the ENTIRE reachable prototype range and the
-#: default crossover sits beyond it.  The routing machinery stays live
-#: (parity-tested at f64) for backends where the FFT wins; override with
-#: GAR_DECIM_FFT_MIN_TAPS.
+#: lowering is the frames-matmul, not the 1:1 conv, and the default
+#: sits beyond the 8191-tap design cap, so the matmul serves every
+#: reachable prototype.  The routing machinery stays live (parity-tested
+#: at f64) for the day the FFT wins; override with
+#: GAR_DECIM_FFT_MIN_TAPS.  Not yet re-measured on the current
+#: accelerator (ROADMAP A6; the paired rows are run_all.py decim_long_*).
 DECIM_FFT_MIN_TAPS = int(os.environ.get('GAR_DECIM_FFT_MIN_TAPS', 16384))
 
 
@@ -89,17 +85,16 @@ def _rational_matrix(plan: EnginePlan):
 
 def _poly_apply_general(plan: EnginePlan, xext: jax.Array, count: int,
                         dtype, tile: int = 256, aux=None) -> jax.Array:
-    """Banded batched matmul for non-exact-rational ratios (MXU path).
+    """Banded batched matmul for non-exact-rational ratios.
 
     The walk is quasi-periodic, so no single per-period matrix exists —
     but within a tile of P outputs the windows span a bounded range, so
     each tile gets its own banded matrix (prestage composed in; see
     _general_matrices) and the whole apply is one batched matmul over
     windows of ``xext`` (the raw input left-padded by T1-1).  This
-    replaces the per-output gather + VPU dot (the round-1 path measured
-    0.16 Gs/s).  The matrices depend on (plan, count) and are device-
-    cached; they are passed as arguments, not baked as constants (a 1-s
-    program's matrices are ~50 MB).
+    replaces a per-output gather + dot.  The matrices depend on (plan,
+    count) and are device-cached; they are passed as arguments, not baked
+    as constants (a 1-s program's matrices are ~50 MB).
     """
     div, _phase, _frac = _poly_walk_host(plan, count)
     if aux is not None:
@@ -119,32 +114,10 @@ def _banded_tiles_apply(u: jax.Array, starts_d: jax.Array, M_d: jax.Array,
                         last_start: int, count: int, dtype) -> jax.Array:
     """Apply per-tile banded matrices: the general/cubic one-shot core.
 
-    Dispatches to the scalar-prefetch Pallas kernel on TPU float32 (DMA
-    framing at the irregular tile starts; the XLA lowering's dynamic
-    gather of [S, n_tiles, W] frames is the round-2 bottleneck at 2.8
-    Gs/s), falling back to gather+einsum elsewhere.
+    Gathers one [W]-wide window per tile at the irregular tile starts and
+    runs one batched einsum against the tile matrices.
     """
-    from ..ops import pallas_fused as pf
-
-    n_tiles, tile, w_band = (int(M_d.shape[0]), int(M_d.shape[1]),
-                             int(M_d.shape[2]))
-    w_pad = -(-w_band // 128) * 128
-    ts = 0
-    if (pf.dispatch_allowed()
-            and jnp.dtype(dtype) == jnp.dtype(jnp.float32)):
-        ts = pf.choose_general_tile(w_pad, tile, u.shape[0])
-    if ts:
-        fetch = (-(-(w_pad + 128) // 128) * 128) + 128
-        xlen = last_start + fetch
-        s_pad = -(-u.shape[0] // ts) * ts
-        up = jnp.pad(u.astype(jnp.float32),
-                     ((0, s_pad - u.shape[0]),
-                      (0, max(0, xlen - u.shape[1]))))[:, :xlen]
-        m_t = jnp.transpose(M_d.astype(jnp.float32), (0, 2, 1))
-        m_t = jnp.pad(m_t, ((0, 0), (0, w_pad - w_band), (0, 0)))
-        y = pf.general_resample_pallas(up, m_t, starts_d,
-                                       w_band=w_band, tile=tile, ts=ts)
-        return y[:u.shape[0], :count]
+    w_band = int(M_d.shape[2])
     if u.shape[1] < last_start + w_band:
         u = jnp.pad(u, ((0, 0), (0, last_start + w_band - u.shape[1])))
     frames = gather_windows(u, starts_d, w_band)       # [S, n_tiles, W]
@@ -288,30 +261,6 @@ def _cubic_matrices(plan: EnginePlan, count: int,
 
 _DECIM_CACHE: dict = {}
 DECIM_PERIOD = 256  # outputs per frame for the decimation frames-matmul
-# Smaller period for the Pallas decim kernel: P=128 keeps the per-step
-# VMEM working set (raw DMA buffers + frame scratch + output block) well
-# under the 16 MB scoped limit where P=256 is marginal.
-PALLAS_DECIM_PERIOD = 128
-
-
-def _pallas_ok(dtype, s: int, ipx: int, wx: int, p2: int, tf: int) -> int:
-    """Dispatch gate for the Pallas fused kernel (default-on on TPU).
-
-    Returns the stream tile to run with (0 = use the XLA path).  Requires
-    float32 (the kernel accumulates f32 on the MXU), an inter-tile
-    overlap smaller than the tile itself (the DMA fetch covers one tile
-    plus the overlap), and a stream tile whose per-step working set fits
-    the scoped-VMEM budget — odd periods force a 128-frame tile, where
-    only a small stream tile fits (pallas_fused.choose_stream_tile).
-    Set GAR_TPU_USE_PALLAS=0 to force the XLA gather+einsum path.
-    """
-    from ..ops import pallas_fused as pf
-
-    if (not pf.dispatch_allowed()
-            or jnp.dtype(dtype) != jnp.dtype(jnp.float32)
-            or wx - ipx >= tf * ipx):
-        return 0
-    return pf.choose_stream_tile(ipx, wx, p2, tf, s)
 
 
 def _decim_matrix(plan: EnginePlan, period: int = DECIM_PERIOD):
@@ -319,10 +268,8 @@ def _decim_matrix(plan: EnginePlan, period: int = DECIM_PERIOD):
 
     Output j reads x~[j*M : j*M + T]; grouping P outputs per frame gives
     frames of width W = (P-1)*M + T with stride P*M and a constant
-    [P, W] matrix R[r, r*M : r*M + T] = coeffs — one MXU matmul per frame
-    instead of a long strided convolution (which XLA:TPU lowers poorly:
-    the 751-tap stride-2 conv ran at ~0.1 Gsample/s; this path is
-    bandwidth-bound like the rational fused path).
+    [P, W] matrix R[r, r*M : r*M + T] = coeffs — one matmul per frame
+    instead of a long strided convolution.
     """
     key = (plan.fingerprint, period)
     if key in _DECIM_CACHE:
@@ -339,31 +286,7 @@ def _decim_matrix(plan: EnginePlan, period: int = DECIM_PERIOD):
 
 def _decim_apply_matmul(plan: EnginePlan, xs: jax.Array, count: int,
                         dtype) -> jax.Array:
-    """Apply integer decimation via frames + one matmul.
-
-    On TPU with float32 the banded structure is identical to the rational
-    fused path (frames of width Wx advancing Ipx per P outputs), so the
-    same Pallas DMA-framing kernel applies; it wins the paired A/B there
-    too (see _poly_apply_rational_fused).
-    """
-    from ..ops import pallas_fused as pf
-
-    R, P, Ipx = _decim_matrix(plan, PALLAS_DECIM_PERIOD)
-    wx = R.shape[1]
-    tf = pf.frame_tile_for(P)
-    ts = _pallas_ok(dtype, xs.shape[0], Ipx, wx, P, tf)
-    if ts:
-        n_tiles = -(-count // (tf * P))
-        s_pad = -(-xs.shape[0] // ts) * ts
-        xlen = n_tiles * tf * Ipx + (wx - Ipx)
-        xp = jnp.pad(xs.astype(jnp.float32),
-                     ((0, s_pad - xs.shape[0]),
-                      (0, max(0, xlen - xs.shape[1]))))[:, :xlen]
-        rt = jnp.asarray(R.T, dtype=jnp.float32)
-        y = pf.fused_resample_pallas(xp, rt, ipx=Ipx, wx=wx, p2=P, ts=ts,
-                                     min_frames=-(-count // P))
-        return y[:xs.shape[0], :count]
-
+    """Apply integer decimation via frames + one matmul."""
     R, P, Ipx = _decim_matrix(plan)
     wx = R.shape[1]
     n_frames = -(-count // P)
@@ -386,15 +309,14 @@ def superframe(r: np.ndarray, ipx: int, *, max_overlap: float = 1.5,
 
     A banded operator with W >> I makes the dense-frames lowering read
     each input ~W/I times (the 48k->8k fused pipeline composite has
-    W/I = 311 — a hard HBM ceiling near 0.6 Gs/s).  Framing kf periods
-    together amortizes the overlap: frames advance kf*I and read
+    W/I = 311).  Framing kf periods together amortizes the overlap: frames advance kf*I and read
     W + (kf-1)*I, so the read amplification drops to 1 + (W-I)/(kf*I)
     (<= 1 + max_overlap by choice of kf), at the cost of a
     [kf*P, W+(kf-1)*I] matrix whose zeros add ~max_overlap extra MACs —
-    MXU headroom is the cheap resource here, HBM bandwidth the scarce
-    one.  Returns (r_super, ipx_super); identity when already compact
+    matmul throughput is the cheap resource here, memory bandwidth the
+    scarce one.  Returns (r_super, ipx_super); identity when already compact
     (the 1.5 default leaves moderately overlapped shapes like CD->DAT,
-    W/I = 1.7, on their proven round-2 kernel geometry).
+    W/I = 1.7, unchanged).
 
     ``kf_cap`` bounds the super-period in input samples (streaming
     engines cap it near their block size to keep latency).
@@ -497,18 +419,14 @@ def _fused_rational_matrix(plan: EnginePlan):
 
 def _poly_apply_rational_fused(plan: EnginePlan, x: jax.Array, count: int,
                                dtype) -> jax.Array:
-    """One matmul for the whole two-stage cascade (MXU fast path).
+    """One matmul for the whole two-stage cascade (fast path).
 
     ``x`` is the raw input: this function applies all padding itself
     (``lam`` virtual zeros on the left when the strict-antialias prefilter
-    is composed into the matrix, coverage zeros on the right).  Halves HBM
+    is composed into the matrix, coverage zeros on the right).  Halves memory
     traffic vs. the unfused path: no intermediate upsampled stream or
-    u-frames are materialized.  On TPU with float32 and VMEM-compatible
-    shapes the Pallas kernel (ops/pallas_fused.py) assembles the
-    overlapping frames on-chip, reaching the read-x-once bandwidth floor.
+    u-frames are materialized.
     """
-    from ..ops import pallas_fused as pf
-
     R, P2, Ipx, lam = _fused_rational_matrix(plan)
     # Bound the frames-overlap read amplification (strict-antialias plans
     # fold a ~1k-tap prefilter into R, pushing W/I into the hundreds).
@@ -518,24 +436,6 @@ def _poly_apply_rational_fused(plan: EnginePlan, x: jax.Array, count: int,
     n_frames = -(-count // P2)
     if lam:
         x = jnp.pad(x, ((0, 0), (lam, 0)))
-
-    tf = pf.frame_tile_for(P2)
-    # Default-on: the DMA-framing kernel (double-buffered HBM fetches +
-    # on-chip alignment roll, no host relayout) beats the XLA fused path
-    # in paired A/B (6.9 vs 5.9 Gs/s on CD->DAT, 256 streams x 2 s).
-    # GAR_TPU_USE_PALLAS=0 opts out.
-    ts = _pallas_ok(dtype, x.shape[0], Ipx, wx, P2, tf)
-    if ts:
-        n_tiles = -(-count // (tf * P2))
-        s_pad = -(-x.shape[0] // ts) * ts
-        xlen = n_tiles * tf * Ipx + (wx - Ipx)
-        xp = jnp.pad(x.astype(jnp.float32),
-                     ((0, s_pad - x.shape[0]),
-                      (0, max(0, xlen - x.shape[1]))))[:, :xlen]
-        rt = jnp.asarray(R.T, dtype=jnp.float32)
-        y = pf.fused_resample_pallas(xp, rt, ipx=Ipx, wx=wx, p2=P2, ts=ts,
-                                     min_frames=n_frames)
-        return y[:x.shape[0], :count]
 
     need = (n_frames - 1) * Ipx + wx
     if x.shape[1] < need:
@@ -552,7 +452,7 @@ def _poly_apply_rational_fused(plan: EnginePlan, x: jax.Array, count: int,
 
 def _poly_apply_rational(plan: EnginePlan, u: jax.Array, count: int,
                          dtype) -> jax.Array:
-    """Frames-matmul fast path (MXU): one [S*F, W] x [W, P] matmul."""
+    """Frames-matmul fast path: one [S*F, W] x [W, P] matmul."""
     R, P, Ip, W = _rational_matrix(plan)
     delta = plan.lengths.core_delta()
     n_frames = -(-count // P)
@@ -588,7 +488,7 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype):
 
     The general (non-exact-rational) path's banded tile matrices are
     tens of MB per (plan, length); passing them as arguments keeps them
-    out of the compiled program (and off the remote-compile payload).
+    out of the compiled program.
     """
     if plan.lengths.canonical(n) <= 0 or n <= 0:
         return ()
@@ -649,9 +549,7 @@ def _oneshot_jit(plan: EnginePlan, x: jax.Array, dtype_name: str,
         xext = jnp.pad(x, ((0, 0), (t - 1, pad_right)))
         if t >= DECIM_FFT_MIN_TAPS:
             # Overlap-save routing for prototypes past the decimate
-            # crossover — unreachable by default on TPU, where the MXU
-            # matmul measured ahead across the whole tap range (see
-            # DECIM_FFT_MIN_TAPS); kept live for other backends.
+            # crossover (see DECIM_FFT_MIN_TAPS).
             from .fftstage import _fft_decimate
             return _fft_decimate(plan, xext[:, t - 1:], canonical)
         return _decim_apply_matmul(plan, xext[:, t - 1:], canonical, dtype)

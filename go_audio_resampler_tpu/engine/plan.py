@@ -138,7 +138,7 @@ class EnginePlan:
         """True when the polyphase walk never uses fractional sub-phases.
 
         Then the stage is exactly periodic and lowers to a frames-matmul
-        (the MXU fast path); true for all exact rational audio ratios,
+        (the fused-matmul fast path); true for all exact rational audio ratios,
         e.g. CD<->DAT.
         """
         return self.kind == 'two_stage' and self.step_lo == 0

@@ -1,14 +1,13 @@
 """Traced (jit-able) stage kernels with static shapes.
 
-TPU-native redesign of the reference's per-sample streaming loops
+Accelerator-side redesign of the reference's per-sample streaming loops
 (SURVEY.md section 7): every stage is a pure function
 ``(state, x_block) -> (state', y_block, valid)`` over fixed-size blocks
 with a leading batch ("streams") axis.  The serial fixed-point phase walk
 of the reference polyphase stage (polyphase_stage.go:257-293) is replaced
 by its closed form ``at_j = at_0 + j*step`` evaluated in parallel with
-two-limb int32 arithmetic (no int64 needed on TPU), and the inner
-convolutions become XLA convolutions / gather+einsum that map onto the
-MXU/VPU.
+two-limb int32 arithmetic (no int64 needed on device), and the inner
+convolutions become XLA convolutions / gather+einsum matmuls.
 
 Alignment trick: the prestage keeps a zero-initialized carry of T1-1
 samples, so its output stream ``u`` is the reference's pre-stage output
@@ -28,8 +27,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..ops import lowering
 from ..ops.convolve import conv1d_poly
-from ..ops.pallas_fused import dot_precision
+from ..ops.precision import dot_precision
 
 I32 = jnp.int32
 
@@ -131,7 +131,7 @@ def prestage_apply(coeffs: jax.Array, xext: jax.Array, factor: int,
 
     ``coeffs`` [F, T1] are tap-reversed (design time), so this correlation
     is the reference's polyphase convolution.  Lowered by XLA as a strided
-    convolution (MXU-eligible).  ``precision`` pins the matmul tier per
+    convolution (matmul-eligible).  ``precision`` pins the matmul tier per
     call site ('auto' = the process-global GAR_TPU_MATMUL_PRECISION).
     """
     from ..ops.convolve import conv1d_poly_interleaved
@@ -192,27 +192,13 @@ def gather_windows(signal: jax.Array, starts: jax.Array, width: int) -> jax.Arra
     return jnp.take(signal, idx, axis=1)
 
 
-#: outputs per banded-emit tile (two 128-lane groups)
+#: outputs per banded-emit tile
 POLY_EMIT_TILE = 256
-
-
-def _banded_emit_on() -> bool:
-    """Trace-time lowering choice for the streaming polyphase emit.
-
-    The banded tile matmul reorders the per-output accumulations into an
-    MXU matmul (results differ from the gather path only by float
-    summation order), so it is enabled where the throughput matters and
-    the quality floors are asserted on hardware output (QUALITY_tpu.json):
-    TPU float32.  ``GAR_TPU_BANDED_EMIT=0`` opts out for A/B runs.
-    """
-    import os
-    return (jax.default_backend() == 'tpu'
-            and os.environ.get('GAR_TPU_BANDED_EMIT', '1') != '0')
 
 
 def _poly_emit_banded(banks, hist, div, phase, x, taps: int, span: int,
                       tv: int, precision: str = 'auto'):
-    """Banded-tile lowering of the polyphase emit (TPU float32 path).
+    """Banded-tile lowering of the polyphase emit (accelerator float32).
 
     Same trick as the one-shot tile matrices (oneshot._general_matrices)
     and the variable-rate scan (variable._vr_scan), but the operator is
@@ -223,7 +209,7 @@ def _poly_emit_banded(banks, hist, div, phase, x, taps: int, span: int,
     sum of ``taps`` statically-shifted one-hot compare/selects (NOT a
     take_along_axis — see the inline note), one wide slab is gathered
     per TILE (instead of one window per OUTPUT), and the emit becomes a
-    per-tile MXU matmul ``[S, span] x [span, tv]``.  MACs on structural
+    per-tile matmul ``[S, span] x [span, tv]``.  MACs on structural
     zeros (~span/taps overhead) buy the removal of the S*cap*taps
     per-output gather.
     """
@@ -236,11 +222,8 @@ def _poly_emit_banded(banks, hist, div, phase, x, taps: int, span: int,
     # b[t, c, w] = K[t, c, w - rel[t, c]] for 0 <= w - rel < taps else 0.
     # Built as sum_j K[..., j] * 1[w == rel + j]: per (t, c, w) exactly
     # one term is nonzero, so the result is bit-identical to an indexed
-    # placement — but each term is a lane-axis COMPARE against a
-    # broadcast scalar, which the TPU VPU does at full width, whereas
-    # the obvious take_along_axis is a per-element lane gather that
-    # costs ~10 ns/element (measured 12.5 ms/step at [9, 256, 512] —
-    # 780x this formulation — and dominated the whole general walk).
+    # placement — but each term is an elementwise COMPARE against a
+    # broadcast scalar instead of a per-element take_along_axis gather.
     # XLA fuses the taps-term sum into one elementwise pass over b.
     Kf = K.reshape(n_t, tv, taps).astype(hist.dtype)
     iw = lax.iota(I32, span)[None, None, :]                  # [1, 1, span]
@@ -263,8 +246,9 @@ def poly_emit(banks, hist: jax.Array, hist_len, at_hi, at_lo,
     Returns (y[S, cap], valid[cap], n_out, at_hi', at_lo') where the valid
     outputs are left-packed (valid is monotone).  The emitted values equal
     the reference walk's outputs exactly (same windows, same interpolated
-    coefficients); on TPU float32 the banded-tile lowering changes only
-    the float accumulation order.
+    coefficients); the banded-tile lowering (float32 where
+    ``ops.lowering.banded_poly_emit``) changes only the float
+    accumulation order.
     """
     L = num_phases
     hi, frac = walk16(at_hi, at_lo, step_hi, step_lo, cap)
@@ -274,7 +258,8 @@ def poly_emit(banks, hist: jax.Array, hist_len, at_hi, at_lo,
     phase = hi - div * L
     x = frac.astype(hist.dtype) * (1.0 / 65536.0)
 
-    if (hist.dtype == jnp.float32 and cap >= 128 and _banded_emit_on()):
+    if (hist.dtype == jnp.float32 and cap >= 128
+            and lowering.banded_poly_emit()):
         tv = POLY_EMIT_TILE if cap >= POLY_EMIT_TILE else 128
         pad = -cap % tv
         # Static span bound: over k < tv outputs the accumulator's

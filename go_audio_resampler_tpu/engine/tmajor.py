@@ -1,25 +1,21 @@
-"""Time-major device serving: streams on the lane axis, periods on sublanes.
+"""Time-major device serving: samples on rows, streams on columns.
 
-The stream-major serving step puts the P2 outputs of each period on the
-MXU's lane (output) axis, which tiles in 128s: CD->DAT's [160 x 343]
-operator issues ceil(160/128)*128 = 256 lanes x 384 K per frame row —
-55.8% useful slots, the tile-padding bound `utils/roofline.py` names for
-the headline row (85% of THAT ceiling is already achieved, so the
-remaining lever is the layout, not the kernel).  Stored TIME-MAJOR
-([samples, streams]) the same step becomes R[P2, Wx] @ window[Wx, S]:
-P2 rides the 8-granular sublane axis (160 pads to 160) and the streams
-fill the lanes exactly — 89.3% useful slots, measured +34% on v5e
-(ops/pallas_fused.fused_resample_tmajor).
+The stream-major serving step (``EngineCore``) stores ``[streams,
+samples]`` and computes ``frames[S, F, Wx] @ R^T[Wx, P2]``.  Stored
+TIME-MAJOR (``[samples, streams]``) the same step becomes
+``R[P2, Wx] @ window[Wx, S]`` per frame: the row windows of
+``[carry ++ block]`` are gathered as ``[F, Wx, S]`` and one
+``einsum('pw,fws->fps')`` emits ``[F*P2, S]`` with no transpose anywhere.
 
 Time-major is not an exotic layout: interleaved multi-channel audio IS
 [samples, channels], so an ingest pipeline feeding interleaved frames
-can use this engine with no transpose anywhere.  Device-resident
-serving only (process_device/flush_device twins of EngineCore's); the
-host-FIFO paths stay on the stream-major engine.
+can use this engine with no transpose.  Device-resident serving only
+(process_device/flush_device twins of EngineCore's); the host-FIFO paths
+stay on the stream-major engine.
 
-Reference anchor: the hot loop this accelerates is the same fused
-two-stage cascade (engine/resampler.go:86-176 topologies) — the layout
-freedom has no Go counterpart.
+Reference anchor: the hot loop is the same fused two-stage cascade
+(engine/resampler.go:86-176 topologies) — the layout freedom has no Go
+counterpart.
 """
 
 from __future__ import annotations
@@ -28,51 +24,50 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax import lax
 
+from ..ops.precision import dot_precision
 from .plan import EnginePlan
-from .streaming import EngineCore, _banded_frames_apply, _ceil_div
+from .streaming import EngineCore, _ceil_div
 
 I32 = jnp.int32
 
 
-@partial(jax.jit, static_argnames=('ipx', 'wx', 'p2', 'dispatch',
-                                   'precision'),
+def _tmajor_frames_apply(data, r, ipx, wx, p2, n_frames,
+                         precision: str = 'auto'):
+    """Row windows at j*ipx of width wx times r [P2, Wx] -> [F*P2, S].
+
+    ``data`` [N, S] is time-major; frame j reads rows
+    ``data[j*ipx : j*ipx + wx]`` (the same canonical grid as the
+    stream-major ``_banded_frames_apply``), gathered as [F, Wx, S] so the
+    streams stay on the minor axis through the matmul.
+    """
+    s = data.shape[1]
+    starts = lax.iota(I32, n_frames) * I32(ipx)
+    idx = starts[:, None] + lax.iota(I32, wx)[None, :]
+    idx = jnp.clip(idx, 0, data.shape[0] - 1)
+    frames = jnp.take(data, idx, axis=0)                 # [F, Wx, S]
+    y = jnp.einsum('pw,fws->fps', r.astype(data.dtype), frames,
+                   preferred_element_type=data.dtype,
+                   precision=dot_precision(precision))
+    return y.reshape(n_frames * p2, s)
+
+
+@partial(jax.jit, static_argnames=('ipx', 'wx', 'p2', 'precision'),
          donate_argnames=('carry',))
-def _step_banded_tmajor(r, carry, x, ipx, wx, p2, dispatch='auto',
-                        precision='auto'):
+def _step_banded_tmajor(r, carry, x, ipx, wx, p2, precision='auto'):
     """Time-major twin of _fused_banded_step: [C+B, S] rows -> frames.
 
     ``r`` [P2, Wx] (NOT transposed — it is the matmul LHS here);
     ``carry`` [C, S]; ``x`` [B, S] with B % ipx == 0.  Window j reads
     rows [carry ++ x][j*ipx : j*ipx + wx] — the same canonical grid as
-    the stream-major step, so outputs are bit-comparable modulo matmul
-    summation order.  Emits exactly (B/ipx)*P2 rows.
+    the stream-major step, so outputs agree modulo matmul summation
+    order.  Emits exactly (B/ipx)*P2 rows.
     """
-    from ..ops import pallas_fused as pf
-
     b = x.shape[0]
     n_frames = b // ipx
     data = jnp.concatenate([carry.astype(x.dtype), x], axis=0)
-    s = data.shape[1]
-    wx_pad = _ceil_div(wx, 128) * 128
-    ts = (pf.choose_tmajor_tile(wx_pad, p2, s)
-          if pf.dispatch_for(dispatch, precision)
-          and data.dtype == jnp.float32 else 0)
-    if ts:
-        s_pad = _ceil_div(max(s, 1), ts) * ts
-        xt = data if s_pad == s else jnp.pad(data, ((0, 0), (0, s_pad - s)))
-        kf = pf.choose_tmajor_kf(wx_pad, p2, ts, ipx, n_frames)
-        y = pf.fused_resample_tmajor(xt, r.astype(jnp.float32), ipx=ipx,
-                                     wx=wx, p2=p2, ts=ts, kf=kf,
-                                     precision=precision)
-        y = y[:n_frames * p2, :s]
-    else:
-        # Portable lowering (CPU tests, f64 parity): the stream-major
-        # frames apply on the transposed data.
-        y = _banded_frames_apply(data.T, jnp.asarray(r).T, ipx, wx, p2,
-                                 n_frames, dispatch='xla',
-                                 precision=precision).T
+    y = _tmajor_frames_apply(data, r, ipx, wx, p2, n_frames, precision)
     return data[b:], y, I32(n_frames * p2)
 
 
@@ -94,13 +89,12 @@ class TimeMajorEngine:
     """
 
     def __init__(self, plan: EnginePlan, batch: int = 1, block: int = 2048,
-                 dtype=jnp.float32, dispatch: str = 'auto',
-                 precision: str = 'auto'):
+                 dtype=jnp.float32, precision: str = 'auto'):
         # Reuse EngineCore's constant baking (fused matrices, superframe,
         # carry/drop arithmetic, length model) — construction compiles
         # nothing; this engine only swaps the step's data layout.
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
-                         dispatch=dispatch, precision=precision)
+                         precision=precision)
         if eng.device_chunk_multiple is None or plan.kind == 'dft_up':
             raise NotImplementedError(
                 f"TimeMajorEngine: topology {plan.kind!r} is not a fused "
@@ -117,7 +111,6 @@ class TimeMajorEngine:
         self.batch = batch
         self.dtype = jnp.dtype(dtype)
         self.block = eng.block
-        self.dispatch = eng.dispatch
         self.precision = precision
         if plan.kind == 'decimate':
             rt, self._ipx, self._wx, self._p2 = (
@@ -187,7 +180,7 @@ class TimeMajorEngine:
         self.samples_in += n
         self._carry, y, _n = _step_banded_tmajor(
             self._r, self._carry, xt, ipx=self._ipx, wx=self._wx,
-            p2=self._p2, dispatch=self.dispatch, precision=self.precision)
+            p2=self._p2, precision=self.precision)
         return self._emit(y, (n // self._ipx) * self._p2, None)
 
     def flush_device(self) -> jax.Array:
@@ -204,8 +197,7 @@ class TimeMajorEngine:
             tail = jnp.zeros((n1, self.batch), self.dtype)
             self._carry, y, _n = _step_banded_tmajor(
                 self._r, self._carry, tail, ipx=self._ipx, wx=self._wx,
-                p2=self._p2, dispatch=self.dispatch,
-                precision=self.precision)
+                p2=self._p2, precision=self.precision)
             outs.append(self._emit(y, (n1 // self._ipx) * self._p2,
                                    canonical_total))
         guard = 0
@@ -213,8 +205,7 @@ class TimeMajorEngine:
             blk = jnp.zeros((self.block, self.batch), self.dtype)
             self._carry, y, _n = _step_banded_tmajor(
                 self._r, self._carry, blk, ipx=self._ipx, wx=self._wx,
-                p2=self._p2, dispatch=self.dispatch,
-                precision=self.precision)
+                p2=self._p2, precision=self.precision)
             outs.append(self._emit(y, (self.block // self._ipx) * self._p2,
                                    canonical_total))
             guard += 1

@@ -1,4 +1,4 @@
-"""Host-side (trace-time) filter design for the TPU resampler.
+"""Host-side (trace-time) filter design for the device resampler.
 
 Everything here is pure numpy float64 and runs once at resampler
 construction; results become constants in the compiled XLA program.

@@ -1,6 +1,6 @@
 """Bessel / Kaiser design-time math (host-side, float64 numpy).
 
-TPU-native framework note: everything in this module runs at *trace/build*
+Framework note: everything in this module runs at *trace/build*
 time on the host.  It emits constant filter coefficients into the compiled
 XLA program; none of this code appears on the device hot path.
 

@@ -1,7 +1,7 @@
 """Kaiser windowed-sinc lowpass design (host-side, float64 numpy).
 
 Runs entirely at trace/build time; emits constant coefficient arrays that
-the TPU engine bakes into its compiled program.
+the device engine bakes into its compiled program.
 
 Capability parity with the reference ``internal/filter/kaiser.go``:
 

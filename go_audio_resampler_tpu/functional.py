@@ -1,8 +1,8 @@
 """Pure-functional resampling: a traceable, differentiable JAX op.
 
 The reference is a stateful host library; its one-shot helpers
-(convenience.go:204-229) run outside any compiler.  On TPU the natural
-extra surface — one the reference cannot offer — is resampling as a
+(convenience.go:204-229) run outside any compiler.  On an accelerator the
+natural extra surface — one the reference cannot offer — is resampling as a
 *JAX op*: a pure function of a device array that users drop inside
 their own ``jit`` / ``vmap`` / ``grad`` / ``shard_map`` programs (e.g.
 48k->16k ingest or augmentation inside a training step, with gradients
@@ -14,12 +14,10 @@ of the fully flushed stream, identical to
 ``convenience.resample_mono`` bit-for-bit.
 
 Differentiation: resampling is a linear operator ``y = R x``, so the
-VJP is the transposed operator ``x_bar = R^T y_bar``.  The forward pass
-lowers through the normal dispatch (Pallas kernels on TPU float32);
-the backward pass re-traces the operator through the XLA lowering
-(``ops.pallas_fused.force_xla``), whose gather/matmul primitives have
-transpose rules — ``pallas_call`` does not.  Both directions are exact
-(same coefficients), so gradient checks hold to machine precision.
+VJP is the transposed operator ``x_bar = R^T y_bar``.  Every lowering is
+plain gather/matmul/scan, whose primitives have transpose rules, so JAX
+differentiates the forward program directly; both directions use the
+same coefficients, so gradient checks hold to machine precision.
 
 Shapes are static under tracing, as everywhere in JAX: one compiled
 program per (rates, quality, n, dtype).  Program size stays compact at
@@ -29,7 +27,7 @@ cubic lower through a ``lax.scan`` of the streaming step kernels whose
 only constants are the coefficient banks — NOT through the one-shot
 banded tile matrices, which scale with the audio length and would be
 baked into the USER'S traced program as constants (tens of MB per
-minute; a remote-compile payload cap turns that into a hard failure).
+minute of audio).
 The scan path equals the one-shot stream to float rounding (the tile
 matmul sums in a different order); exact-rational configs remain
 bit-identical to ``convenience.resample_mono``.
@@ -50,11 +48,9 @@ from .engine import plan_engine, stages
 from .engine.oneshot import _oneshot_jit
 from .engine.plan import EnginePlan
 from .engine.stages import (CubicState, PolyState, PrestageState, I32)
-from .ops import pallas_fused
 
 # The undecorated traceable body of the one-shot program: tracing happens
-# in the *caller's* context (the user's jit/grad trace), so the Pallas
-# dispatch gates see the force_xla flag the backward pass sets.
+# in the *caller's* context (the user's jit/grad/shard_map trace).
 _core = _oneshot_jit.__wrapped__
 
 
@@ -177,46 +173,6 @@ def _plan(input_rate: float, output_rate: float,
                        hq_interp=hq_interp)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 2, 3, 4))
-def _linear_op(plan: EnginePlan, x2: jax.Array, dtype_name: str,
-               n: int, in_dtype_name: str):
-    return _apply(plan, x2, dtype_name)
-
-
-def _linear_op_fwd(plan, x2, dtype_name, n, in_dtype_name):
-    return _linear_op(plan, x2, dtype_name, n, in_dtype_name), None
-
-
-def _linear_op_bwd(plan, dtype_name, n, in_dtype_name, _res, ct):
-    in_dtype = jnp.dtype(in_dtype_name)
-
-    def xla_apply(v):
-        with pallas_fused.force_xla():
-            return _apply(plan, v, dtype_name)
-
-    # The op is linear, so the VJP at any primal point is the constant
-    # transposed operator; zeros is the cheapest primal.  The batch size
-    # comes from the cotangent (the op preserves the stream axis); the
-    # sample count n and input dtype are static arguments.
-    z = jnp.zeros((ct.shape[0], n), in_dtype)
-    # Under shard_map the cotangent carries varying-manual-axes (vma)
-    # type; the primal must carry the same axes or the pullback rejects
-    # the cotangent's type.
-    vma = getattr(jax.typeof(ct), 'vma', None) if hasattr(jax, 'typeof') \
-        else None
-    if vma:
-        if hasattr(jax.lax, 'pcast'):
-            z = jax.lax.pcast(z, tuple(vma), to='varying')
-        else:        # older jax spells it pvary
-            z = jax.lax.pvary(z, tuple(vma))
-    _, vjp = jax.vjp(xla_apply, z)
-    (xbar,) = vjp(ct.astype(jnp.dtype(dtype_name)))
-    return (xbar.astype(in_dtype),)
-
-
-_linear_op.defvjp(_linear_op_fwd, _linear_op_bwd)
-
-
 def resample(x, input_rate: float, output_rate: float, *,
              quality: QualityPreset = QualityPreset.HIGH,
              dtype=None, hq_interp: bool = False) -> jax.Array:
@@ -250,5 +206,5 @@ def resample(x, input_rate: float, output_rate: float, *,
     lead = x.shape[:-1]
     n = x.shape[-1]
     x2 = x.reshape((int(np.prod(lead, dtype=np.int64)) if lead else 1, n))
-    y2 = _linear_op(plan, x2, dtype.name, int(n), jnp.dtype(x2.dtype).name)
+    y2 = _apply(plan, x2, dtype.name)
     return y2.reshape(lead + (y2.shape[-1],))

@@ -1,4 +1,4 @@
-"""Device compute ops: convolution lowerings and Pallas TPU kernels."""
+"""Device compute ops: convolution lowerings and matmul precision tiers."""
 
 from .convolve import conv1d_poly, set_conv_impl
 

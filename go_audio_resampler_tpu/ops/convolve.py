@@ -6,11 +6,9 @@ primitive ``conv1d_poly(x, kernels, stride)`` computing
 
     y[s, f, i] = sum_t x[s, i*stride + t] * kernels[f, t]
 
-Two lowerings:
+Three lowerings:
 
-- ``xla``:    ``lax.conv_general_dilated`` — the textbook form; XLA:TPU
-              lowers long-kernel stride-1 audio convs poorly (measured
-              ~25x slower than the banded form for a 200-tap prestage).
+- ``xla``:    ``lax.conv_general_dilated`` — the textbook form.
 - ``frames``: tiled windows-gather + einsum.  Used on CPU where
               XLA:CPU's conv compilation is pathologically slow for long
               audio kernels (50+ s per shape).
@@ -18,9 +16,10 @@ Two lowerings:
               shared (P-1)*stride+T window against a banded [W, P*F]
               matrix (the same structure as the engine's fused rational/
               decimation paths).  Read amplification 1 + T/(P*stride)
-              instead of T; one big MXU matmul.  TPU default.
+              instead of T; one big matmul.  Accelerator default.
 
-The default picks per backend at trace time; ``set_conv_impl`` overrides.
+The default picks per backend at trace time (ops/lowering.py);
+``set_conv_impl`` overrides.
 """
 
 from __future__ import annotations
@@ -29,7 +28,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from .pallas_fused import dot_precision
+from .lowering import conv_impl
+from .precision import dot_precision
 
 _IMPL_OVERRIDE: str | None = None
 
@@ -45,7 +45,7 @@ def set_conv_impl(impl: str | None) -> None:
 def _impl() -> str:
     if _IMPL_OVERRIDE is not None:
         return _IMPL_OVERRIDE
-    return 'frames' if jax.default_backend() == 'cpu' else 'banded'
+    return conv_impl()
 
 
 def _conv_xla(x: jax.Array, kernels: jax.Array, stride: int,
@@ -97,8 +97,6 @@ def _conv_banded(x: jax.Array, kernels: jax.Array, stride: int,
     y[s, i*F + ff] (the polyphase-upsampling order) — the band's natural
     output layout, skipping two whole-array transposes.
     """
-    import os
-
     import numpy as np
 
     n = x.shape[1]
@@ -117,45 +115,18 @@ def _conv_banded(x: jax.Array, kernels: jax.Array, stride: int,
             jnp.asarray(ii * stride + tau),
             jnp.asarray(ii * f + ff)].set(vals), w
 
-    # The band has exactly the fused-resampling structure (P*F outputs
-    # per frame, frames advance P*stride), so the Pallas DMA-framing
-    # kernel applies where it fits; it reads the overlapping windows by
-    # DMA instead of materializing frames in HBM.  A smaller period
-    # keeps its per-step VMEM comfortably inside budget (window overlap
-    # is free for the DMA path, so the larger read amplification of a
-    # small p does not apply to it).
-    y3 = None
-    p = min(128, max(n_out, 1))
+    p = min(period, max(n_out, 1))
     nf = -(-n_out // p)
-    from . import pallas_fused as pf
-    if (pf.dispatch_for('auto', precision)
-            and x.dtype == jnp.float32 and nf > 1):
-        ipx, p2 = p * stride, p * f
-        r_pal, w = band_matrix(p)
-        tf = pf.frame_tile_for(p2)
-        ts = pf.choose_stream_tile(ipx, w, p2, tf, x.shape[0])
-        if ts and w - ipx < tf * ipx:
-            n_tiles = -(-nf // tf)
-            s_pad = -(-x.shape[0] // ts) * ts
-            xlen = n_tiles * tf * ipx + (w - ipx)
-            xp = jnp.pad(x, ((0, s_pad - x.shape[0]),
-                             (0, max(0, xlen - n))))[:, :xlen]
-            yk = pf.fused_resample_pallas(xp, r_pal, ipx=ipx, wx=w, p2=p2,
-                                          ts=ts, precision=precision)
-            y3 = yk[:x.shape[0], :nf * p2].reshape(x.shape[0], nf, p2)
-    if y3 is None:
-        p = min(period, max(n_out, 1))
-        nf = -(-n_out // p)
-        r, w = band_matrix(p)
-        need = (nf - 1) * p * stride + w
-        if n < need:
-            x = jnp.pad(x, ((0, 0), (0, need - n)))
-        frames = jnp.take(x, jnp.asarray(
-            np.arange(nf, dtype=np.int64)[:, None] * p * stride
-            + np.arange(w)[None, :], dtype=jnp.int32), axis=1)  # [S,nf,W]
-        y3 = jnp.einsum('snw,wk->snk', frames, r,
-                        preferred_element_type=x.dtype,
-                        precision=dot_precision(precision))  # [S, nf, P*F]
+    r, w = band_matrix(p)
+    need = (nf - 1) * p * stride + w
+    if n < need:
+        x = jnp.pad(x, ((0, 0), (0, need - n)))
+    frames = jnp.take(x, jnp.asarray(
+        np.arange(nf, dtype=np.int64)[:, None] * p * stride
+        + np.arange(w)[None, :], dtype=jnp.int32), axis=1)  # [S,nf,W]
+    y3 = jnp.einsum('snw,wk->snk', frames, r,
+                    preferred_element_type=x.dtype,
+                    precision=dot_precision(precision))  # [S, nf, P*F]
     if interleaved:
         # y3[s, n, ii*f + ff] = filter ff at output n*p + ii — already
         # the polyphase-interleaved stream order; flatten for free.

@@ -1,17 +1,18 @@
 """Device-mesh scaling for batched stream resampling.
 
 The reference's only parallelism is goroutine-per-channel data parallelism
-(constant.go:224-241, SURVEY.md section 2).  The TPU-native scaling model
-(SURVEY.md "TPU-native equivalents") is:
+(constant.go:224-241, SURVEY.md section 2).  The accelerator scaling
+model is:
 
-- on one chip, channels/streams ride the leading batch axis;
-- across chips, that axis is sharded over a 1-D ``jax.sharding.Mesh``
-  with ``shard_map`` — pure data parallelism riding ICI.  No collectives
+- on one device, channels/streams ride the leading batch axis;
+- across devices, that axis is sharded over a 1-D ``jax.sharding.Mesh``
+  with ``shard_map`` — pure data parallelism.  No collectives
   are semantically required (streams are independent); optional global
   metrics use ``psum``/``pmax`` reductions.
 
 These helpers are exercised by ``__graft_entry__.dryrun_multichip`` on a
-virtual host-platform mesh and scale unchanged to real multi-chip slices.
+virtual host-platform mesh and by ``chip_smoke.py --cards 4`` on four
+GPUs; the mesh is 1-D because every card reaches every other directly.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..engine import plan_engine, EngineCore
-from ..ops.pallas_fused import dot_precision
+from ..ops.precision import dot_precision
 from ..engine.variable import VariableRateResampler
 from ..engine.oneshot import _oneshot_aux, _oneshot_jit
 from ..engine import stages
@@ -47,8 +48,8 @@ def sharded_oneshot(plan, x, mesh: Mesh, dtype=jnp.float32):
 
     ``x`` is [S, n] with S divisible by the mesh size.  Each device runs
     the identical static program on its shard; XLA inserts no collectives
-    (streams are independent), so scaling is linear over ICI-attached
-    chips.  The host-prepared banded matrices (cubic / non-exact-rational
+    (streams are independent), so scaling is linear over the mesh's
+    devices.  The host-prepared banded matrices (cubic / non-exact-rational
     plans) are passed as replicated device ARGUMENTS, mirroring
     ``oneshot()`` — without them the in-trace fallback bakes ~50 MB of
     matrices per second of audio into the compiled program as constants.
@@ -73,8 +74,8 @@ def sharded_stream_step(plan, mesh: Mesh, batch_per_device: int,
     ``shard_map`` over the mesh: per-device stream state stays resident in
     device memory, inputs arrive sharded [S_total, block], and a global
     peak statistic is reduced with ``pmax`` across the mesh to exercise a
-    collective (the only cross-chip traffic; per-sample data never crosses
-    ICI).
+    collective (the only cross-device traffic; per-sample data never
+    crosses devices).
 
     Exact-rational plans use the fused periodic-matmul step
     (engine/streaming._step_rational_fused): state is just the input carry
@@ -176,7 +177,7 @@ def sharded_stream_step(plan, mesh: Mesh, batch_per_device: int,
         poly_state, y, valid, n = stages.poly_process(
             banks, poly_state, u, plan.num_phases, plan.poly_taps,
             plan.step_hi, plan.step_lo, cap)
-        # Cross-chip reduction (the only ICI traffic): global output peak.
+        # Cross-device reduction (the only collective): global output peak.
         peak = jax.lax.pmax(jnp.max(jnp.abs(y)), STREAM_AXIS)
         new_state = (pre_state, (poly_state.hist, poly_state.hist_len,
                                  poly_state.at_hi, poly_state.at_lo))
@@ -210,11 +211,10 @@ class ShardedEngineCore(EngineCore):
 
     def __init__(self, plan, mesh: Mesh, batch_per_device: int = 1,
                  block: int = 2048, dtype=jnp.float32,
-                 dispatch: str = 'auto', precision: str = 'auto'):
+                 precision: str = 'auto'):
         self.mesh = mesh
         super().__init__(plan, batch=batch_per_device * mesh.devices.size,
-                         block=block, dtype=dtype, dispatch=dispatch,
-                         precision=precision)
+                         block=block, dtype=dtype, precision=precision)
 
     def _spec_of(self, tree):
         return jax.tree_util.tree_map(
@@ -289,7 +289,7 @@ class ShardedVariableRateResampler(VariableRateResampler):
     The VR device step (engine/variable.py) is embarrassingly parallel
     over streams: the per-output index/fraction arrays are replicated
     (identical walk for every stream) while the carry and input blocks
-    shard on the batch axis — pure stream DP over ICI, the same model as
+    shard on the batch axis — pure stream data parallelism, the same model as
     ShardedEngineCore.  The host-side position walk is unchanged.
     """
 

@@ -1,6 +1,6 @@
 """Batched inter-stage sample FIFO (host side).
 
-TPU-native stand-in for the reference's mutex-guarded auto-growing
+Host-side stand-in for the reference's mutex-guarded auto-growing
 RingBuffer (internal/pipeline/buffer.go:12-172): inside one compiled device
 program no queues are needed (stages compose functionally with scan-carried
 state), but the *host* orchestration between sub-engines in the pipeline
@@ -18,7 +18,7 @@ class SampleFIFO:
     """Auto-growing FIFO of [batch, n] sample frames.
 
     API parity with the reference RingBuffer: write / read / read_into /
-    available / reset (buffer.go:38-172).  Not thread-safe: the TPU
+    available / reset (buffer.go:38-172).  Not thread-safe: the
     framework has no concurrent producers (the reference's mutex guarded
     goroutine fan-in, which batching replaces).
     """

@@ -3,13 +3,13 @@
 The reference's pipeline path pushes samples through N stages connected by
 ring buffers (constant.go:255-293).  Round 2 replicated that with one
 device program per stage per block and host numpy hand-offs in between —
-65x slower than the direct engine.  TPU-native insight: every planned
+65x slower than the direct engine.  The insight: every planned
 stage (half-band up/down, integer decimation, exact-rational polyphase,
 strict-antialias prefilter) is a *periodically time-varying banded linear
 operator*, and the composition of such operators is again one.  So the
 whole pipeline collapses at build time (numpy, float64) into a single
 ``[P, W]`` per-period matrix that streams through the same fused
-banded-matmul step as the direct engine — one MXU matmul per block, zero
+banded-matmul step as the direct engine — one matmul per block, zero
 host transfers between stages.
 
 Normal form (``BandedOp``): with ``xe = zeros(lam) ++ x ++ zeros(...)``,

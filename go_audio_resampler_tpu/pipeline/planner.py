@@ -7,7 +7,7 @@ power-of-two stages plus a residual polyphase/FFT stage, with the same
 tap/phase/cutoff/interpolation-order calculators and latency model
 (constants from internal/pipeline/constants.go kept verbatim).
 
-In the TPU framework each planned stage is realized as a sub-engine
+In this framework each planned stage is realized as a sub-engine
 (see api.py's stage construction, mirroring stages.go:21-119); the
 inter-stage RingBuffer becomes the host-side SampleFIFO in .buffer.
 """

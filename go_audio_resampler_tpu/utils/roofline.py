@@ -1,128 +1,90 @@
-"""Roofline / MFU accounting for the banded-matmul hot paths.
+"""Roofline accounting for the banded-matmul hot paths.
 
 Every timed device program in this framework is a banded periodic matmul
 whose per-input-sample operation count is a *static compile-time
 constant* — the [P2, Wx] matrix dims and the Ipx input stride per period
-fully determine flops/sample, MXU slot occupancy, and HBM bytes/sample.
-This module turns a measured Msamples/s into
+fully determine flops/sample and device-memory bytes/sample.  This module
+turns a measured Msamples/s into
 
   - ``tflops_achieved``  — useful Tflop/s implied by the matrix dims,
-  - ``mfu_pct``          — achieved fraction of the precision tier's
-                           effective MXU peak (HIGHEST = 6 bf16 passes
-                           per f32 matmul, HIGH = 3, DEFAULT = 1; see
-                           ops/pallas_fused._PRECISION_TIERS),
-  - ``mfu_slot_pct``     — achieved fraction of the *shape-padded*
-                           ceiling: the MXU executes lane/K tiles of
-                           128, so a [*, 343]x[343, 160] matmul issues
-                           ceil(343/128)*128 x ceil(160/128)*128 slots
-                           per frame row whether or not the operands
-                           fill them.  This is the number that says
-                           whether kernel engineering (framing, DMA,
-                           relayout) has headroom left, as opposed to
-                           the plan geometry itself,
-  - ``hbm_gbps`` / ``hbm_pct`` — bandwidth implied by the kernel's
-                           read-amplification model,
-  - ``bound``            — the named binding resource.
+  - ``flops_pct``        — that rate over the peak of the unit the
+                           precision tier runs on (``TIER_UNIT``),
+  - ``hbm_gbps`` / ``hbm_pct`` — bandwidth implied by the bytes model,
+  - ``bound``            — ``"compute"`` when the operations take longer
+                           at peak than the bytes, else ``"memory"``,
+  - ``roofline_pct``     — the least time the card could take (the larger
+                           of ops/peak and bytes/bandwidth) over the
+                           measured time.
 
-The reference publishes relative benchstat diffs only
-(/root/reference/.github/workflows/benchmark.yml); absolute Ms/s alone
-cannot distinguish "at the ceiling" from "2x headroom left", which is
-why every committed perf row carries these fields (round-4 verdict
-item 1).
+A wall-clock slope includes everything the step does; the per-kernel
+shares come from a profiler trace, not from here.
 """
 
 from __future__ import annotations
 
-import os
-
 __all__ = [
-    "device_peaks", "banded_model", "general_model", "analyze",
-    "TIER_PASSES",
+    "PEAKS", "TIER_UNIT", "device_peaks", "banded_model", "general_model",
+    "analyze",
 ]
 
-#: Per-chip peaks by ``jax.devices()[0].device_kind``:
-#: (bf16 matmul Tflop/s, HBM GB/s).  Public numbers from the TPU system
-#: architecture docs; 'TPU v5 lite' is the v5e serving chip this repo's
-#: committed artifacts were measured on.
-_PEAKS = {
-    "TPU v5 lite": (197.0, 819.0),    # v5e
-    "TPU v5": (459.0, 2765.0),        # v5p
-    "TPU v5p": (459.0, 2765.0),
-    "TPU v4": (275.0, 1228.0),
-    "TPU v4 lite": (138.0, 614.0),    # v4i
-    "TPU v6 lite": (918.0, 1640.0),   # v6e / Trillium
-    "TPU v6e": (918.0, 1640.0),
+#: Published dense peaks per ``jax.devices()[0].device_kind``: Tflop/s
+#: per arithmetic unit and device-memory GB/s.  Source: NVIDIA H200 data
+#: sheet (SXM part, dense rates without sparsity, at the 700 W limit):
+#: 67 Tflop/s float32 outside the tensor cores, 495 TF32, 989 bf16,
+#: 141 GB of HBM3e at 4.8 TB/s.  A card set below 700 W cannot hold
+#: these under load; report its ``power.limit`` beside any share.
+PEAKS = {
+    "NVIDIA H200": {"fp32": 67.0, "tf32": 495.0, "bf16": 989.0,
+                    "hbm_gbps": 4800.0},
 }
 
-#: bf16 MXU passes per f32 matmul at each precision tier (the MXU is a
-#: bf16 multiplier array; f32 operands are split into limb products).
-TIER_PASSES = {"highest": 6, "high": 3, "default": 1}
+#: Arithmetic unit each ``precision`` tier runs on (ops/precision.py).
+#: ``highest`` is float32 outside the tensor cores; ``high`` and
+#: ``default`` run as TF32 on the tensor cores, as ``chip_smoke.py``
+#: phase 6 establishes on the card by matching each tier's product
+#: bit for bit against the explicit dot-algorithm presets.
+TIER_UNIT = {"highest": "fp32", "high": "tf32", "default": "tf32"}
 
 
 def device_peaks(device=None) -> dict:
-    """Per-chip peak numbers for the local accelerator.
+    """Peaks of ``device`` (default: ``jax.devices()[0]``).
 
-    Returns ``{"kind", "bf16_tflops", "hbm_gbps"}``.  Unknown kinds (and
-    CPU smoke runs) fall back to the v5e numbers so the arithmetic stays
-    meaningful; ``GAR_TPU_PEAK_BF16_TFLOPS`` / ``GAR_TPU_HBM_GBPS``
-    override both for new hardware without a code change.
+    Returns ``{"kind", "fp32", "tf32", "bf16", "hbm_gbps"}``.  A device
+    kind missing from :data:`PEAKS` is an error, never a default.
     """
-    kind = "unknown"
     if device is None:
-        try:
-            import jax
+        import jax
 
-            device = jax.devices()[0]
-        except Exception:
-            device = None
-    if device is not None:
-        kind = getattr(device, "device_kind", "unknown")
-    tflops, gbps = _PEAKS.get(kind, _PEAKS["TPU v5 lite"])
-    tflops = float(os.environ.get("GAR_TPU_PEAK_BF16_TFLOPS", tflops))
-    gbps = float(os.environ.get("GAR_TPU_HBM_GBPS", gbps))
-    return {"kind": kind, "bf16_tflops": tflops, "hbm_gbps": gbps}
+        device = jax.devices()[0]
+    kind = getattr(device, "device_kind", None)
+    if kind not in PEAKS:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r}; add it to "
+            f"utils/roofline.PEAKS (known: {sorted(PEAKS)})")
+    return {"kind": kind, **PEAKS[kind]}
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def banded_model(p2: int, wx: int, ipx: int, *, read_amp: float = 1.08,
-                 nnz: int | None = None, bytes_elem: int = 4,
-                 p2_granule: int = 128) -> dict:
+def banded_model(p2: int, wx: int, ipx: float, *,
+                 read_amp: float | None = None, nnz: int | None = None,
+                 bytes_elem: int = 4) -> dict:
     """Static per-input-sample op counts for a [P2 x Wx] banded step.
 
     One period consumes ``ipx`` input samples and emits ``p2`` outputs
     through a dense [Wx, P2] matmul (the matrix's structural zeros are
-    executed by the MXU, so they count as issued work; ``nnz`` when
-    given additionally reports the truly-useful MAC fraction).
+    executed, so they count as issued work; ``nnz`` when given
+    additionally reports the truly-useful MAC fraction).  flops := 2*MACs.
 
-    ``read_amp`` — HBM reads of x per input sample.  The Pallas
-    DMA-framing kernel re-reads only the inter-tile overlap (~1.08 for
-    CD->DAT, see ops/pallas_fused.py); the XLA gather+einsum path
-    materializes overlapping frames, reading Wx/Ipx.
-
-    MXU slot model: the systolic array processes lane (output) and K
-    (contraction) tiles of 128, so per frame row it issues
-    ``roundup(P2,128) * roundup(Wx,128)`` MAC slots; the M (frame-row)
-    dimension is sublane-granular and effectively free at the batch
-    sizes the benches run.  flops := 2 * MACs.
-
-    ``p2_granule`` — the padding granule of the P2 axis: 128 for the
-    stream-major layout (P2 on lanes), 8 for the time-major layout
-    (P2 on sublanes, streams on lanes — engine/tmajor.py), which is
-    the layout's whole point: CD->DAT's P2=160 pads to 256 lanes
-    stream-major but exactly 160 sublanes time-major.
+    ``read_amp`` — device-memory reads of x per input sample.  The XLA
+    gather+einsum lowering materializes overlapping frames, so the
+    default is ``wx / ipx``.
     """
-    flops = 2.0 * p2 * wx / ipx
-    slots = 2.0 * _round_up(p2, p2_granule) * _round_up(wx, 128) / ipx
+    if read_amp is None:
+        read_amp = wx / ipx
     return {
         # ipx may be fractional for quasi-periodic walks (the general
         # non-exact path consumes tv * in_rate/out_rate inputs per tile).
         "p2": int(p2), "wx": int(wx), "ipx": float(ipx),
-        "flops_per_in": flops,
-        "slots_per_in": slots,
-        "useful_frac_of_slots": flops / slots,
+        "flops_per_in": 2.0 * p2 * wx / ipx,
         "nnz_flops_per_in": (2.0 * nnz / ipx) if nnz is not None else None,
         "bytes_per_in": bytes_elem * (read_amp + p2 / ipx),
     }
@@ -134,36 +96,29 @@ def general_model(*, factor: int, pre_taps: int, poly_taps: int,
     """Static op model of the general (non-exact-rational) streaming step.
 
     The step is prestage conv (factor x pre_taps per input) followed by
-    the banded-tile polyphase emit (stages._poly_emit_banded): per tile
-    of ``tile`` outputs one [S, span] x [span, tile] matmul, where
-    ``span`` is the static window-span bound from stages.poly_emit, plus
-    the Horner coefficient interpolation (~6 * poly_taps flops/output).
-    The walk computes the full padded cap every block (invalid outputs
-    are masked, not skipped), so computed outputs/input =
-    roundup(poly_cap, tile) / block.
+    the polyphase emit: per tile of ``tile`` outputs one [S, span] x
+    [span, tile] matmul in the banded lowering (stages._poly_emit_banded),
+    where ``span`` is the static window-span bound from stages.poly_emit,
+    plus the Horner coefficient interpolation (~6 * poly_taps
+    flops/output).  The walk computes the full padded cap every block
+    (invalid outputs are masked, not skipped), so computed outputs/input
+    = roundup(poly_cap, tile) / block.
 
     The bytes model is per-stream and coarse (x once, u written+read,
     output written); the on-device banded-block assembly is
-    batch-amortized and omitted — at production batch sizes the verdict
-    for this path hinges on the MXU fraction, not bandwidth.
+    batch-amortized and omitted.
     """
+    def round_up(x: int, m: int) -> int:
+        return -(-x // m) * m
+
     div_adv = ((tile - 1) * (step_hi + 1)) // num_phases + 1
-    span = _round_up(div_adv + poly_taps, 128)
-    cap_pad = _round_up(poly_cap, tile)
-    outs_per_in = cap_pad / block
-    pre_flops = 2.0 * factor * pre_taps
-    emit_flops = 2.0 * span * outs_per_in
-    horner_flops = 6.0 * poly_taps * outs_per_in
-    flops = pre_flops + emit_flops + horner_flops
-    # span and tile are 128-aligned by construction; the prestage conv's
-    # K dim (pre_taps) pads to 128 granules.
-    slots = (2.0 * factor * _round_up(pre_taps, 128)
-             + 2.0 * span * outs_per_in + horner_flops)
+    span = round_up(div_adv + poly_taps, 128)
+    outs_per_in = round_up(poly_cap, tile) / block
+    flops = (2.0 * factor * pre_taps + 2.0 * span * outs_per_in
+             + 6.0 * poly_taps * outs_per_in)
     return {
         "p2": int(tile), "wx": int(span), "ipx": float(tile / outs_per_in),
         "flops_per_in": flops,
-        "slots_per_in": slots,
-        "useful_frac_of_slots": flops / slots,
         "nnz_flops_per_in": None,
         "bytes_per_in": 4.0 * (1.0 + 2.0 * factor + outs_per_in),
     }
@@ -174,48 +129,24 @@ def analyze(msps: float, model: dict, tier: str = "highest",
     """Roofline verdict for a measured throughput.
 
     ``msps`` — measured Msamples/s (input samples); ``model`` — from
-    :func:`banded_model`; ``tier`` — matmul precision tier of the timed
-    program ('highest' | 'high' | 'default').
-
-    ``bound`` is the named binding resource:
-
-    - ``hbm``     — implied bandwidth exceeds ~60% of the chip's HBM
-                    peak (and more of it than of the MXU): faster math
-                    would not help.
-    - ``mxu``     — issued slots exceed ~60% of the tier's effective
-                    peak: the systolic array is the wall.  When the
-                    useful fraction of those slots is low the verdict
-                    string carries the padding note (the fix is plan
-                    geometry, not kernel engineering).
-    - ``framing`` — neither resource is near its roof: per-step
-                    overheads (DMA latency, rolls, relayouts, launch)
-                    dominate.
+    :func:`banded_model` or :func:`general_model`; ``tier`` — matmul
+    precision tier of the timed program ('highest' | 'high' | 'default').
     """
     peaks = peaks or device_peaks()
-    passes = TIER_PASSES[tier]
-    eff_peak_tflops = peaks["bf16_tflops"] / passes
-    tflops = msps * 1e6 * model["flops_per_in"] / 1e12
-    tslots = msps * 1e6 * model["slots_per_in"] / 1e12
-    mfu = 100.0 * tflops / eff_peak_tflops
-    mfu_slot = 100.0 * tslots / eff_peak_tflops
-    gbps = msps * 1e6 * model["bytes_per_in"] / 1e9
-    hbm_pct = 100.0 * gbps / peaks["hbm_gbps"]
-    if hbm_pct >= 60.0 and hbm_pct >= mfu_slot:
-        bound = "hbm"
-    elif mfu_slot >= 60.0:
-        bound = "mxu"
-        if model["useful_frac_of_slots"] < 0.75:
-            bound = "mxu(tile-padding)"
-    else:
-        bound = "framing"
+    unit = TIER_UNIT[tier]
+    rate = msps * 1e6                                  # input samples / s
+    tflops = rate * model["flops_per_in"] / 1e12
+    gbps = rate * model["bytes_per_in"] / 1e9
+    t_ops = model["flops_per_in"] / (peaks[unit] * 1e12)
+    t_bytes = model["bytes_per_in"] / (peaks["hbm_gbps"] * 1e9)
     return {
         "tier": tier,
-        "tflops_achieved": round(tflops, 2),
-        "mfu_pct": round(mfu, 1),
-        "mfu_slot_pct": round(mfu_slot, 1),
-        "hbm_gbps": round(gbps, 1),
-        "hbm_pct": round(hbm_pct, 1),
-        "eff_peak_tflops": round(eff_peak_tflops, 1),
-        "bound": bound,
-        "chip": peaks["kind"],
+        "unit": unit,
+        "tflops_achieved": tflops,
+        "flops_pct": 100.0 * tflops / peaks[unit],
+        "hbm_gbps": gbps,
+        "hbm_pct": 100.0 * gbps / peaks["hbm_gbps"],
+        "bound": "compute" if t_ops >= t_bytes else "memory",
+        "roofline_pct": 100.0 * max(t_ops, t_bytes) * rate,
+        "device": peaks["kind"],
     }

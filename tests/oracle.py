@@ -2,7 +2,7 @@
 
 A deliberately simple float64 implementation of the reference engine's
 streaming semantics (engine/resampler.go, dft_stage.go, polyphase_stage.go)
-driven by the same filter plans as the TPU engine.  Used only as a test
+driven by the same filter plans as the device engine.  Used only as a test
 anchor; O(n*taps) per sample, no vectorization tricks.
 """
 

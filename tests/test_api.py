@@ -24,25 +24,29 @@ class TestConfigValidation:
     def test_valid(self):
         gar.Config(44100, 48000).validate()
 
-    def test_dispatch_values(self):
-        for d in ("auto", "pallas", "xla"):
-            gar.Config(44100, 48000, dispatch=d).validate()
-        with pytest.raises(gar.InvalidConfigError, match="dispatch"):
-            gar.Config(44100, 48000, dispatch="fast").validate()
+    @pytest.mark.parametrize("tier", ["auto", "highest", "high", "default"])
+    def test_precision_values(self, tier):
+        gar.Config(44100, 48000, precision=tier).validate()
+        with pytest.raises(gar.InvalidConfigError, match="precision"):
+            gar.Config(44100, 48000, precision="fast").validate()
 
-    def test_dispatch_modes_equal_stream(self):
-        """On CPU all dispatch modes lower to XLA: identical output."""
+    def test_precision_tiers_equal_stream(self):
+        """On CPU every tier computes in full float32: identical output."""
         import numpy as np
         x = np.random.default_rng(1).normal(size=4096).astype(np.float32)
         outs = []
-        for d in ("auto", "pallas", "xla"):
+        for tier in ("auto", "highest", "high", "default"):
             r = gar.new_resampler(gar.Config(
                 48000, 8000, channels=1,
                 quality=gar.QualitySpec(preset=gar.QualityPreset.HIGH),
-                dtype=np.float32, dispatch=d))
+                dtype=np.float32, precision=tier))
             outs.append(np.concatenate([r.process(x), r.flush()]))
         for o in outs[1:]:
             np.testing.assert_array_equal(outs[0], o)
+
+    def test_dispatch_option_is_gone(self):
+        with pytest.raises(TypeError):
+            gar.Config(44100, 48000, dispatch="xla")
 
     @pytest.mark.parametrize("inr,outr", [
         (0, 48000), (48000, 0), (-1, 48000), (float('nan'), 48000),

@@ -4,7 +4,7 @@ Reference anchor: internal/engine/buffer_integrity_test.go:18-400 — the
 reference asserts that a slice returned by Process is never corrupted by
 later Process/Flush calls, that mutating the caller's input after the
 call does not retroactively change outputs, and that mutating a returned
-buffer does not poison subsequent outputs.  The TPU build's contract is
+buffer does not poison subsequent outputs.  The device build's contract is
 stronger (every emission is a fresh host download), but nothing enforced
 it until this tier.
 """

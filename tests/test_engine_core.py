@@ -1,7 +1,7 @@
 """Engine correctness vs the serial numpy oracle.
 
 The oracle (tests/oracle.py) is a direct serial implementation of the
-reference's streaming semantics; the TPU engine (static shapes, closed-form
+reference's streaming semantics; the device engine (static shapes, closed-form
 phase walk, conv/gather/matmul kernels) must reproduce its sample stream
 bit-tightly in float64.
 """
@@ -273,12 +273,12 @@ class TestMatrixCache:
 
 
 class TestBandedEmitParity:
-    """The TPU banded-tile polyphase emit (stages._poly_emit_banded) must
+    """The GPU banded-tile polyphase emit (stages._poly_emit_banded) must
     equal the per-output gather path up to float32 summation order.
 
-    The lowering itself is backend-gated (TPU float32 only); here it is
+    The lowering itself is backend-gated (GPU float32 only); here it is
     invoked directly so the algebra is verified in CI, and the hardware
-    numerics are covered by QUALITY_tpu.json / test_tpu_compiled.
+    numerics are covered by chip_smoke.py / tools/quality_device.py.
     """
 
     @pytest.mark.parametrize("inr,outr", [

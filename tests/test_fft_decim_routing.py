@@ -1,14 +1,11 @@
-"""Decimation lowering routing: MXU banded matmul vs FFT overlap-save.
+"""Decimation lowering routing: banded matmul vs FFT overlap-save.
 
-Round-4 finding (paired v5e slope A/B, benchmarks decim_long_*): for the
-DECIMATE topology the MXU frames-matmul beats overlap-save across the
-entire reachable prototype range — ~9x at 6403 taps (48k->4k VeryHigh)
-and ~8.5x at the 8191-tap design cap (48k->2k High, 12.1 vs 1.4 Gs/s) —
-so the default crossover (oneshot.DECIM_FFT_MIN_TAPS) sits beyond any
-designable prototype and the matmul always serves on TPU.  The routing
-machinery stays live for other backends (GAR_DECIM_FFT_MIN_TAPS): these
-tests exercise it by lowering the crossover and pin float64 parity
-between the two lowerings on both the one-shot and the streaming path.
+For the DECIMATE topology the default crossover
+(oneshot.DECIM_FFT_MIN_TAPS) sits beyond any designable prototype, so
+the frames-matmul always serves.  The routing machinery stays live
+(GAR_DECIM_FFT_MIN_TAPS): these tests exercise it by lowering the
+crossover and pin float64 parity between the two lowerings on both the
+one-shot and the streaming path.
 """
 
 from __future__ import annotations
@@ -48,8 +45,8 @@ def _routed(plan, x, thresh):
 class TestOneshotRouting:
 
     def test_default_stays_matmul_even_at_design_cap(self, monkeypatch):
-        """8191 taps is the designable maximum; the measured default keeps
-        the matmul (it wins 8.5x there on v5e)."""
+        """8191 taps is the designable maximum; the default keeps the
+        matmul there."""
         plan = plan_engine(48000.0, 2000.0, Quality.HIGH)
         assert plan.decim_taps == 8191
         assert plan.decim_taps < osm.DECIM_FFT_MIN_TAPS

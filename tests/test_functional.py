@@ -1,7 +1,7 @@
 """Functional (traceable) resample op: jit / vmap / grad / shard_map.
 
 This surface has no reference counterpart (the Go library is host-only;
-convenience.go:204-229 is the closest analog) — it is the TPU-native
+convenience.go:204-229 is the closest analog) — it is the accelerator-native
 "resample as a layer" capability.  The contract under test:
 
 - bit parity with ``convenience.resample_mono`` (same one-shot stream),

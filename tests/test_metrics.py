@@ -103,7 +103,7 @@ class TestDCAndAmplitude:
 
 class TestConvLowerings:
     def test_banded_matches_frames(self):
-        # The TPU-default banded lowering must equal the frames reference
+        # The accelerator-default banded lowering must equal the frames reference
         # across kernel lengths, strides, and multi-filter shapes.
         import jax.numpy as jnp
         from go_audio_resampler_tpu.ops import convolve as cv

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
 Validates the stream-axis data-parallel scaling model (SURVEY.md
-section 2's TPU-native mapping of goroutine-per-channel parallelism) and
+section 2's device mapping of goroutine-per-channel parallelism) and
 the driver entry points.
 """
 

@@ -1,10 +1,10 @@
-"""float32-path quality floors (the TPU compute dtype).
+"""float32-path quality floors (the serving compute dtype).
 
 The reference validates float32 vs float64 consistency
 (convenience_float32_test.go:222, README.md:361-367: f32 High THD
 -145.01 dB vs f64 -145.25).  Here the float32 fused path must still clear
 the THD regression floors and hold DC gain; measured on CPU with the same
-kernels the TPU executes.
+kernels the device executes.
 """
 
 import numpy as np

@@ -1,33 +1,33 @@
-"""Roofline / MFU accounting (utils/roofline.py).
+"""Roofline accounting (utils/roofline.py).
 
-The model must reproduce the hand analysis that shaped the kernels:
-CD->DAT HIGH's fused matrix is [160, 343] over Ipx=147 (ROADMAP 15,
-pallas_fused.py "~15 Tf/s effective at HIGHEST"), so a measured 20.8
-Gs/s must come out as ~15.5 Tflop/s and ~47% of the 6-pass v5e peak.
+CD->DAT HIGH's fused matrix is [160, 343] over Ipx=147: 2*160*343/147
+~ 747 flop per input sample, and the XLA lowering's materialized frames
+move 4*(343/147 + 160/147) ~ 13.7 B per input sample — about 55 flop/B,
+above the H200's float32 ridge of 67e12/4.8e12 ~ 14 flop/B.
 """
-
-import os
 
 import numpy as np
 import pytest
 
 from go_audio_resampler_tpu.utils.roofline import (
-    TIER_PASSES, analyze, banded_model, device_peaks)
+    PEAKS, TIER_UNIT, analyze, banded_model, device_peaks, general_model)
 
-V5E = {"kind": "TPU v5 lite", "bf16_tflops": 197.0, "hbm_gbps": 819.0}
+H200 = {"kind": "NVIDIA H200", **PEAKS["NVIDIA H200"]}
 
 
 class TestBandedModel:
     def test_cd_dat_dims(self):
-        # The flagship serving step: R [160, 343], Ipx = 147.
         m = banded_model(160, 343, 147)
         assert m["flops_per_in"] == pytest.approx(2 * 160 * 343 / 147)
-        # MXU slots: lanes 160 -> 256, K 343 -> 384.
-        assert m["slots_per_in"] == pytest.approx(2 * 256 * 384 / 147)
-        assert m["useful_frac_of_slots"] == pytest.approx(
-            (160 * 343) / (256 * 384))
-        # Pallas traffic: ~1.08 reads of x + P2/Ipx output samples, f32.
-        assert m["bytes_per_in"] == pytest.approx(4 * (1.08 + 160 / 147))
+        # XLA materializes overlapping frames: wx/ipx reads of x plus
+        # P2/Ipx output samples, f32.
+        assert m["bytes_per_in"] == pytest.approx(4 * (343 / 147 + 160 / 147))
+        assert m["flops_per_in"] / m["bytes_per_in"] == pytest.approx(
+            54.6, abs=0.5)
+
+    def test_explicit_read_amp(self):
+        m = banded_model(160, 343, 147, read_amp=1.0)
+        assert m["bytes_per_in"] == pytest.approx(4 * (1.0 + 160 / 147))
 
     def test_matches_live_plan(self):
         from go_audio_resampler_tpu.engine import plan_engine
@@ -52,64 +52,75 @@ class TestBandedModel:
         assert m["flops_per_in"] == pytest.approx(
             2 * 256 * 512 / (256 * 44100 / 48001))
 
+    def test_general_model_counts(self):
+        m = general_model(factor=2, pre_taps=100, poly_taps=20,
+                          num_phases=64, step_hi=100, block=2048,
+                          poly_cap=3000)
+        outs_per_in = 3072 / 2048
+        assert m["bytes_per_in"] == pytest.approx(
+            4.0 * (1.0 + 4.0 + outs_per_in))
+        assert m["flops_per_in"] > 2.0 * 2 * 100
+
 
 class TestAnalyze:
-    def test_headline_numbers(self):
-        # 20.8 Gs/s on the [160,343]/147 step at HIGHEST (6-pass):
-        # ~15.5 Tflop/s useful, ~47% of 197/6, ~85% of the slot ceiling.
+    def test_cd_dat_highest_is_compute_bound(self):
+        # At the float32 tier the step's ~55 flop/B sits above the ridge:
+        # operations, not bytes, set its least time.
         m = banded_model(160, 343, 147)
-        a = analyze(20767.0, m, tier="highest", peaks=V5E)
-        assert a["tflops_achieved"] == pytest.approx(15.5, abs=0.1)
-        assert a["eff_peak_tflops"] == pytest.approx(197.0 / 6, abs=0.1)
-        assert a["mfu_pct"] == pytest.approx(47.2, abs=1.0)
-        assert a["mfu_slot_pct"] == pytest.approx(84.6, abs=1.5)
-        # Issued slots near the roof but useful fraction only ~56%:
-        # the verdict names the tile padding, not kernel engineering.
-        assert a["bound"] == "mxu(tile-padding)"
+        a = analyze(40000.0, m, tier="highest", peaks=H200)
+        assert a["unit"] == "fp32"
+        assert a["bound"] == "compute"
+        assert a["tflops_achieved"] == pytest.approx(
+            40000e6 * 2 * 160 * 343 / 147 / 1e12)
+        assert a["flops_pct"] == pytest.approx(
+            100 * a["tflops_achieved"] / 67.0)
+        assert a["roofline_pct"] == pytest.approx(a["flops_pct"])
 
-    def test_hbm_bound_case(self):
-        # The 1-pass bf16 ingest tier: 72.4 Gs/s -> ~630 GB/s of 819,
-        # while the single-pass MXU peak (197) is far away.
+    def test_tf32_tier_is_memory_bound(self):
+        # TF32's ridge is 495e12/4.8e12 ~ 103 flop/B: the same step is
+        # then bounded by its bytes.
         m = banded_model(160, 343, 147)
-        a = analyze(72428.0, m, tier="default", peaks=V5E)
-        assert a["hbm_pct"] > 60.0
-        assert a["bound"] == "hbm"
+        a = analyze(40000.0, m, tier="high", peaks=H200)
+        assert a["unit"] == "tf32"
+        assert a["bound"] == "memory"
+        assert a["roofline_pct"] == pytest.approx(a["hbm_pct"])
 
-    def test_framing_bound_case(self):
+    def test_hbm_numbers(self):
         m = banded_model(160, 343, 147)
-        a = analyze(1000.0, m, tier="highest", peaks=V5E)
-        assert a["bound"] == "framing"
+        a = analyze(100000.0, m, tier="highest", peaks=H200)
+        assert a["hbm_gbps"] == pytest.approx(
+            100000e6 * m["bytes_per_in"] / 1e9)
+        assert a["hbm_pct"] == pytest.approx(100 * a["hbm_gbps"] / 4800.0)
 
-    def test_mxu_bound_clean_shape(self):
-        # A shape with no padding waste at the slot roof reads 'mxu'.
-        m = banded_model(256, 512, 256)
-        a = analyze(22000.0, m, tier="highest", peaks=V5E)
-        assert m["useful_frac_of_slots"] == 1.0
-        assert a["mfu_pct"] == a["mfu_slot_pct"]
-        assert a["bound"] == "mxu"
-
-    def test_tier_scaling(self):
-        m = banded_model(160, 343, 147)
-        hi = analyze(10000.0, m, tier="highest", peaks=V5E)
-        de = analyze(10000.0, m, tier="default", peaks=V5E)
-        # Rounded to one decimal in the artifact, hence the tolerance.
-        assert hi["mfu_pct"] == pytest.approx(
-            de["mfu_pct"] * TIER_PASSES["highest"], abs=0.4)
+    @pytest.mark.parametrize("tier", sorted(TIER_UNIT))
+    def test_every_tier_has_a_unit(self, tier):
+        assert TIER_UNIT[tier] in PEAKS["NVIDIA H200"]
+        a = analyze(1000.0, banded_model(160, 343, 147), tier=tier,
+                    peaks=H200)
+        assert a["bound"] in ("compute", "memory")
 
 
 class TestDevicePeaks:
-    def test_known_kind_fallback_and_override(self, monkeypatch):
-        p = device_peaks(device=None)
-        assert p["bf16_tflops"] > 0 and p["hbm_gbps"] > 0
-        monkeypatch.setenv("GAR_TPU_PEAK_BF16_TFLOPS", "500")
-        monkeypatch.setenv("GAR_TPU_HBM_GBPS", "1000")
-        p2 = device_peaks(device=None)
-        assert p2["bf16_tflops"] == 500.0 and p2["hbm_gbps"] == 1000.0
-
-    def test_explicit_device_kind(self):
+    def test_h200_known(self):
         class Fake:
-            device_kind = "TPU v4"
+            device_kind = "NVIDIA H200"
 
         p = device_peaks(device=Fake())
-        assert p["kind"] == "TPU v4"
-        assert p["bf16_tflops"] == 275.0
+        assert p["kind"] == "NVIDIA H200"
+        assert (p["fp32"], p["tf32"], p["bf16"], p["hbm_gbps"]) == (
+            67.0, 495.0, 989.0, 4800.0)
+
+    @pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                      "NVIDIA H100 80GB HBM3"])
+    def test_unknown_device_raises(self, kind):
+        class Fake:
+            device_kind = kind
+
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks(device=Fake())
+
+    def test_default_device_on_cpu_raises(self):
+        # The test suite runs on the CPU, which has no entry: the default
+        # device must be refused, not mapped to some accelerator's peaks.
+        with pytest.raises(ValueError):
+            device_peaks()

@@ -45,10 +45,10 @@ class TestCheckpointResume:
         resumed = np.concatenate([part1, part2, part3])
         np.testing.assert_array_equal(resumed, full)
 
-    def test_resume_portable_across_dispatch_pins(self, tmp_path):
-        """A snapshot is lowering-independent: a stream saved from a
-        dispatch='xla'-pinned engine resumes bit-identically on an
-        'auto' engine (state is samples + counters, never kernel
+    def test_resume_portable_across_precision_pins(self, tmp_path):
+        """A snapshot is tier-independent: a stream saved from a
+        precision='high'-pinned engine resumes bit-identically on an
+        'auto' engine (state is samples + counters, never lowering
         internals)."""
         plan = plan_engine(44100, 48000, Quality.HIGH)
         x = signals.sine(6000, 997.0, 44100)
@@ -57,13 +57,13 @@ class TestCheckpointResume:
         full = np.concatenate([eng.process(x)[0], eng.flush()[0]])
 
         eng_a = EngineCore(plan, batch=1, block=512, dtype=np.float64,
-                           dispatch="xla")
+                           precision="high")
         part1 = eng_a.process(x[:3000])[0]
-        ckpt = tmp_path / "stream_xla.npz"
+        ckpt = tmp_path / "stream_high.npz"
         save_stream_state(eng_a, ckpt)
 
         eng_b = EngineCore(plan, batch=1, block=512, dtype=np.float64,
-                           dispatch="auto")
+                           precision="auto")
         load_stream_state(eng_b, ckpt)
         resumed = np.concatenate(
             [part1, eng_b.process(x[3000:])[0], eng_b.flush()[0]])
@@ -382,3 +382,25 @@ class TestCLIPrecisionFlag:
         r = WavReader(outp, use_native=False)
         assert r.sample_rate == 48000
         r.close()
+
+
+class TestWalkCapGuard:
+    """The polyphase walk's int32 bound (cap < 2^15) shrinks the block;
+    a plan whose cap exceeds it even at block=1 is refused with a clear
+    error instead of halving the block to zero."""
+
+    def _plan_with_step(self, step):
+        import dataclasses
+        plan = plan_engine(44100, 48001, Quality.HIGH)
+        assert plan.kind == 'two_stage' and not plan.is_rational_exact
+        return dataclasses.replace(plan, step=step)
+
+    def test_unreachable_cap_raises_value_error(self):
+        with pytest.raises(ValueError, match="int32 bound"):
+            EngineCore(self._plan_with_step(1), batch=1, block=2048)
+
+    def test_block_shrinks_until_cap_fits(self):
+        plan = plan_engine(44100, 48001, Quality.HIGH)
+        eng = EngineCore(plan, batch=1, block=1 << 16, dtype=np.float64)
+        assert eng.poly_cap <= 32767
+        assert 1 <= eng.block < 1 << 16

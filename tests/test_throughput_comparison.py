@@ -5,9 +5,9 @@ The reference benchmarks itself against live libsoxr on the same machine
 environment-feasible analog here is scipy.signal.resample_poly on the CPU
 backend: both run the same workload on the same machine in the same
 process, and the framework must stay within an order of magnitude of the
-C implementation even on its non-native backend (on TPU it is ~3 orders
-faster; this tier exists to catch pathological CPU regressions and to
-keep an honest same-machine number in the test log).
+C implementation even on its non-native backend (this tier exists to
+catch pathological CPU regressions and to keep an honest same-machine
+number in the test log; device numbers come from bench.py on a GPU).
 """
 
 import time
@@ -58,8 +58,7 @@ class TestThroughputComparison:
               f"(ratio {ours_msps / scipy_msps:.2f}x, CPU backend)")
         # Sanity floor only: the CPU backend is the parity path, not the
         # product path (XLA:CPU runs the f64 banded matmuls ~20x slower
-        # than scipy's C polyphase loop; the TPU product path is ~250x
-        # FASTER than scipy — benchmarks/results.json).  A 30x-slower
+        # than scipy's C polyphase loop).  A 30x-slower
         # result signals something structurally broken (e.g. re-tracing
         # per call).
         assert ours_msps > scipy_msps / 30.0

@@ -1,9 +1,10 @@
-"""Time-major serving engine (engine/tmajor.py + fused_resample_tmajor).
+"""Time-major serving engine (engine/tmajor.py).
 
 Transpose equivalence with the stream-major EngineCore is the contract:
 same canonical grid, same counts, same values up to matmul summation
-order (bit-exact on the CPU fallback, which lowers both through the
-same XLA frames apply).
+order.  The time-major lowering gathers row windows [F, Wx, S] and runs
+one einsum with no transpose; it is checked against a dense float64
+reference and against EngineCore's output.
 """
 
 import numpy as np
@@ -14,33 +15,58 @@ import jax.numpy as jnp
 
 from go_audio_resampler_tpu.engine import (EngineCore, TimeMajorEngine,
                                            plan_engine)
-from go_audio_resampler_tpu.engine.tmajor import _step_banded_tmajor
+from go_audio_resampler_tpu.engine.tmajor import (_step_banded_tmajor,
+                                                  _tmajor_frames_apply)
 from go_audio_resampler_tpu.filterdesign import Quality
 
 RNG = np.random.default_rng(3)
 
 
-class TestTmajorKernel:
-    # kf=2 is the production pick (choose_tmajor_kf); 3 exercises a
-    # partial final group on n_frames=12 and kf > n_frames on
-    # n_frames=1 (clamped by the grid, masked at copy-out).
-    @pytest.mark.parametrize("kf", [1, 2, 3])
+class TestTmajorLowering:
+    # Stream counts: 1 (mono), 3 (not a power of two) and 256 (a serving
+    # batch); frame counts 1 and 12.
+    @pytest.mark.parametrize("s", [1, 3, 256])
     @pytest.mark.parametrize("n_frames", [1, 12])
-    def test_interpret_matches_dense(self, kf, n_frames):
-        from go_audio_resampler_tpu.ops.pallas_fused import \
-            fused_resample_tmajor
-
-        ipx, wx, p2, s = 147, 343, 160, 256
+    def test_matches_dense(self, s, n_frames):
+        ipx, wx, p2 = 147, 343, 160
         n = (n_frames - 1) * ipx + wx
         xt = RNG.normal(size=(n, s)).astype(np.float32)
         r = RNG.normal(size=(p2, wx)).astype(np.float32)
-        y = np.asarray(fused_resample_tmajor(
-            jnp.asarray(xt), jnp.asarray(r), ipx=ipx, wx=wx, p2=p2,
-            ts=128, kf=kf, interpret=True))
+        y = np.asarray(_tmajor_frames_apply(
+            jnp.asarray(xt), jnp.asarray(r), ipx, wx, p2, n_frames))
         ref = np.concatenate(
-            [r @ xt[m * ipx:m * ipx + wx] for m in range(n_frames)])
-        assert y.shape == ref.shape
+            [r.astype(np.float64) @ xt[m * ipx:m * ipx + wx]
+             for m in range(n_frames)])
+        assert y.shape == ref.shape == (n_frames * p2, s)
         np.testing.assert_allclose(y, ref, atol=2e-4)
+
+    def test_precision_pin_reaches_trace(self):
+        """The per-engine tier pins the time-major dot_general too."""
+        data = jnp.zeros((343 + 147, 4), jnp.float32)
+        r = jnp.zeros((160, 343), jnp.float32)
+
+        def trace(tier):
+            return str(jax.make_jaxpr(lambda d: _tmajor_frames_apply(
+                d, r, 147, 343, 160, 2, tier))(data))
+        assert "HIGHEST" in trace("highest")
+        assert "HIGHEST" not in trace("high") and "HIGH" in trace("high")
+
+    def test_float32_matches_enginecore(self):
+        """f32 time-major stream equals EngineCore's, transposed."""
+        plan = plan_engine(44100.0, 48000.0, Quality.HIGH)
+        s = 4
+        ref_eng = EngineCore(plan, batch=s, block=2048, dtype=jnp.float32)
+        mult = ref_eng.device_chunk_multiple
+        x = (RNG.normal(size=(s, 12 * mult)) * 0.5).astype(np.float32)
+        y_ref = np.concatenate(
+            [np.asarray(ref_eng.process_device(jnp.asarray(x))),
+             np.asarray(ref_eng.flush_device())], axis=1)
+        tm = TimeMajorEngine(plan, batch=s, block=2048, dtype=jnp.float32)
+        y_tm = np.concatenate(
+            [np.asarray(tm.process_device(jnp.asarray(x.T))),
+             np.asarray(tm.flush_device())], axis=0)
+        assert y_tm.shape == (y_ref.shape[1], s)
+        np.testing.assert_allclose(y_tm, y_ref.T, atol=2e-5)
 
 
 TOPOLOGIES = [
